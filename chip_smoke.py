@@ -7,19 +7,29 @@ Run from the repository root, on a machine with one CUDA card:
 
 Phases (any failure exits non-zero, and no result line is printed):
 
-1. build every CUDA kernel of the predict path from csrc/ (one nvcc each,
+1. build every CUDA kernel of the predict paths from csrc/ (one nvcc each,
    started together);
-2. each kernel against its plain PyTorch version on the card, at the shape
-   the main path gives it, with its time beside its bound, the plain
-   version's time and one PyTorch call computing the same function;
-3. the main path end to end: synthetic wavs, a random-weight BiLSTM
+2. each kernel against its plain PyTorch version on the card, at the shapes
+   the main paths give it, with its time beside its bound, the plain
+   version's time and one PyTorch call computing the same function: K1
+   (instance norm + GELU), K2 (banded flash attention forward) and K6 (fused
+   local attention);
+3. the audio path end to end: synthetic wavs, a random-weight BiLSTM
    checkpoint (embedding 768, h 256, 2 layers, FocalLoss) and the predict
    CLI with -ee on cuda under MTS_RANDOM_ENCODER_WEIGHTS=1 (random
    wav2vec2-base); the kernels' launch counts are set to 0 just before this
    run and read just after;
-4. a breakdown of the main path's encode: host wall against device kernel
-   time from torch.profiler, and the costliest device kernels;
-5. the card against the CPU: one 20-unit document's _mean embeddings.
+4. the long-document path: ten synthetic embedding files of up to 3600
+   units, and for each of Transformer, RecurrentLongT5 and
+   BiLSTMRestrictedMHA a random checkpoint at the flagship width (768, h 256,
+   2 layers, 8 heads, window 120) through the predict CLI on cuda, with
+   K2's count set to 0 before each run and read after it (4: two layers
+   times two chunks); then K6 through local_attention(use_pallas=True);
+5. a breakdown: host wall against device busy time from torch.profiler and
+   the costliest device kernels, for the audio path's encode and for one
+   8 x 3600 decode of each long-document tagger;
+6. the card against the CPU: one 20-unit document's _mean embeddings, and
+   each long-document tagger's logits on a 400- and a 300-unit document.
 
 The line before the last is a JSON object with one entry per kernel; the last
 line is {"ok": true, "device": {...}}. Working files go to build/chip_smoke/.
@@ -36,7 +46,13 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, "build", "chip_smoke")
 SR = 16000
-MAIN_SECONDS = (60.0, 150.0, 300.0)  # the main path's three documents
+MAIN_SECONDS = (60.0, 150.0, 300.0)  # the audio path's three documents
+# the long-document path: units per embedding file, and the taggers served
+DOC_UNITS = (3600, 3600, 3100, 2500, 2048, 1500, 900, 400, 500, 300)
+TAGGERS = ("Transformer", "RecurrentLongT5", "BiLSTMRestrictedMHA")
+# kernel checks: one batch of 8 padded to 3600 units, a zero-length and a full row
+CHECK_LENGTHS = (3600, 0, 3100, 2500, 2048, 1500, 900, 400)
+FLASH_SOURCE = "multimodaltopicsegmentation_torch/csrc/flash_local_attention.cu"
 # H100 SXM data sheet: HBM rate, float32 peak
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
@@ -63,6 +79,13 @@ def time_ms(fn, iters=20, warmup=3):
         times.append(e0.elapsed_time(e1))
     times.sort()
     return times[len(times) // 2]
+
+
+def bound(bytes_moved, ops):
+    """-> (bound_ms, bound_by): the larger of bytes over the HBM rate and
+    float32 operations over the CUDA-core peak."""
+    by_bytes, by_ops = bytes_moved / HBM_BYTES_PER_S, ops / FP32_FLOP_PER_S
+    return 1e3 * max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
 
 
 def check_instance_norm_gelu(dev):
@@ -104,8 +127,7 @@ def check_instance_norm_gelu(dev):
     # per element: sum, squared deviation (2), normalise + affine (2),
     # GELU (scale, erf counted as one, add, two products: 5)
     ops = 10 * n
-    bound_ms = 1e3 * max(bytes_moved / HBM_BYTES_PER_S, ops / FP32_FLOP_PER_S)
-    bound_by = "bytes" if bytes_moved / HBM_BYTES_PER_S >= ops / FP32_FLOP_PER_S else "operations"
+    bound_ms, bound_by = bound(bytes_moved, ops)
     log(f"[K1 instance_norm_gelu] [{B}, {C}, {T}] f32: max_abs_err {err:.3e} (atol/rtol 1e-4); "
         f"kernel {ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), plain {plain_ms:.4f} ms, "
         f"F.gelu(F.group_norm) {library_ms:.4f} ms")
@@ -120,6 +142,138 @@ def check_instance_norm_gelu(dev):
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": library_ms,
+    }
+
+
+def banded_work(lengths, L, half, block, H, Dh):
+    """Float32 operations the banded attention needs for THESE lengths: 4*Dh
+    per (query, valid key in band) pair, queries in the padding included, and
+    one sum of V over 3*block rows for each block that holds a query with no
+    valid key."""
+    import numpy as np
+
+    i = np.arange(L)
+    ops = 0
+    for n in lengths:
+        keys = np.minimum(i + half, n - 1) - np.maximum(i - half, 0) + 1
+        pairs = int(np.clip(keys, 0, None).sum())
+        first_uniform = 0 if n == 0 else n + half
+        blocks = 0 if first_uniform >= L else -(-L // block) - first_uniform // block
+        ops += H * (4 * Dh * pairs + blocks * 3 * block * Dh)
+    return ops
+
+
+def sdpa_mask(lengths, L, half, dev, bias=None, block=None):
+    """Additive [B, 1 or H, L, L] mask for F.scaled_dot_product_attention:
+    band, prefix lengths (NEG_INF, not -inf: a zero-length row must not give
+    NaN) and, with `bias`, the translation-invariant tile laid out per
+    position."""
+    import torch
+
+    i = torch.arange(L, device=dev)
+    off = i[None, :] - i[:, None]  # key - query
+    m = torch.where(off.abs() <= half, 0.0, -1e9)[None, None]
+    if bias is not None:
+        col = (off + (i % block)[:, None] + block).clamp(0, 3 * block - 1)
+        m = m + bias[:, (i % block)[:, None].expand(L, L), col][None]
+    valid = i[None, :] < torch.tensor(lengths, device=dev)[:, None]
+    return m + torch.where(valid, 0.0, -1e9)[:, None, None, :]
+
+
+def check_flash_attention(dev):
+    """K2 and K6 against their plain versions at the long-document path's
+    shapes (whole tensors, padded rows included), and their times at each."""
+    import torch
+    import torch.nn.functional as F
+
+    from multimodaltopicsegmentation_torch.ops import flash_attention as FA
+
+    H = 8
+    # (label, kernel, B, L, Dh, window, biased, scale, dropped, lengths)
+    cases = [
+        ("K2 Transformer layer 0", "K2", 8, 3600, 96, 240, False, True, False, CHECK_LENGTHS),
+        ("K2 Transformer layer 1", "K2", 8, 3600, 96, 120, False, True, False, CHECK_LENGTHS),
+        ("K2 RecurrentLongT5, biased, unscaled", "K2", 8, 3600, 64, 240, True, False, False,
+         CHECK_LENGTHS),
+        ("K2 RecurrentLongformer", "K2", 8, 3600, 32, 120, False, True, False, CHECK_LENGTHS),
+        ("K2 with a 0/1 tile", "K2", 2, 512, 64, 240, False, True, True, (512, 100)),
+        ("K6 Transformer layer 0", "K6", 8, 3600, 96, 240, False, True, False, CHECK_LENGTHS),
+    ]
+    rows = []
+    for label, kernel, B, L, Dh, window, biased, scale, dropped, lengths in cases:
+        g = torch.Generator(device=dev).manual_seed(0)
+        q, k, v = (torch.randn(B, H, L, Dh, device=dev, generator=g) for _ in range(3))
+        mask = (torch.arange(L, device=dev)[None, :]
+                < torch.tensor(lengths, device=dev)[:, None]).float()
+        half = window // 2
+        block, nb, _ = FA._flash_geometry(L, half)
+        bias = 0.1 * torch.randn(H, block, 3 * block, device=dev, generator=g) if biased else None
+        drop = ((torch.rand(B * H, nb * block, 3 * block, device=dev, generator=g) < 0.9).float()
+                if dropped else None)
+        keep = 0.9 if dropped else 1.0
+        if kernel == "K2":
+            run = lambda: FA._flash_fwd(q, k, v, mask, window, bias, scale, drop, keep)  # noqa: E731
+            plain = lambda: FA.flash_local_attention_reference(  # noqa: E731
+                q, k, v, mask, window, bias, scale, drop, keep)
+        else:
+            run = lambda: (FA.fused_local_attention(q, k, v, window, mask), None)  # noqa: E731
+            plain = lambda: (FA.fused_local_attention_reference(q, k, v, window, mask), None)  # noqa: E731
+        out, lse = run()
+        torch.cuda.synchronize()
+        want_out, want_lse = plain()
+        # online softmax, tile-wise summation order and expf against torch's exp
+        torch.testing.assert_close(out, want_out, atol=1e-4, rtol=1e-4)
+        if lse is not None:
+            torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-4)
+        err = (out - want_out).abs().max().item()
+        del want_lse
+
+        library_ms = None
+        if not dropped:  # no one call applies a given 0/1 tile to the weights
+            am = sdpa_mask(lengths, L, half, dev, bias, block)
+            sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                q, k, v, attn_mask=am, scale=None if scale else 1.0)
+            # the yardstick computes the same function on every row with a key
+            for b, n in enumerate(lengths):
+                torch.testing.assert_close(sdpa()[b, :, :n], want_out[b, :, :n],
+                                           atol=1e-3, rtol=1e-3)
+            library_ms = time_ms(sdpa, iters=5, warmup=2)
+            del am
+        ms = time_ms(run)
+        plain_ms = time_ms(plain, iters=5, warmup=2)
+        n = B * H * L
+        bytes_moved = (4 * n * Dh * 4 + B * 4 + (n * 4 if kernel == "K2" else 0)
+                       + (bias.numel() * 4 if biased else 0) + (drop.numel() * 4 if dropped else 0))
+        ops = banded_work(lengths, L, half, block, H, Dh)
+        bound_ms, bound_by = bound(bytes_moved, ops)
+        lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
+        log(f"[{label}] [{B}, {H}, {L}, {Dh}] f32 window {window}: max_abs_err {err:.3e} "
+            f"(atol/rtol 1e-4, O{'' if lse is None else ' and lse'}); kernel {ms:.4f} ms, bound "
+            f"{bound_ms:.4f} ms ({bound_by}: {ops / 1e9:.2f} GFLOP, {bytes_moved / 1e6:.0f} MB), "
+            f"plain {plain_ms:.4f} ms, scaled_dot_product_attention {lib}")
+        rows.append({"kernel": kernel, "label": label, "shape": [B, H, L, Dh], "window": window,
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": library_ms})
+        del q, k, v, out, want_out
+
+    def entry(name, kernel, replaces):
+        mine = [r for r in rows if r["kernel"] == kernel]
+        head = mine[0]  # the Transformer's first layer, the costliest call of the path
+        return {
+            "name": name, "route": "cuda", "source": FLASH_SOURCE, "replaces": replaces,
+            "max_abs_err": max(r["max_abs_err"] for r in mine),
+            "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+            "shapes": [{k: r[k] for k in r if k != "kernel"} for r in mine],
+        }
+
+    return {
+        "flash_local_attention": entry(
+            "flash_local_attention", "K2",
+            "multimodaltopicsegmentation_tpu/ops/pallas_attention.py:433"),
+        "fused_local_attention": entry(
+            "fused_local_attention", "K6",
+            "multimodaltopicsegmentation_tpu/ops/pallas_attention.py:104"),
     }
 
 
@@ -140,28 +294,32 @@ def write_wavs(audio_dir, seconds, seed):
         save_wav(os.path.join(audio_dir, f"doc{d}.wav"), sig.astype(np.float32), SR)
 
 
-def write_checkpoint(path, hyp_path, calibrate_on=None):
-    """A random BiLSTM checkpoint (seed 0). With `calibrate_on`, a [units, 768]
-    embedding array, the head's bias is shifted so that the median unit of it
-    scores 0.5: random scores would otherwise sit all on one side of the
-    threshold, and predict would find no segments or only segments."""
+def write_checkpoint(path, hyp_path, calibrate_on=None, architecture="BiLSTM"):
+    """A random checkpoint (seed 0) at the flagship width: embedding 768,
+    h 256, 2 layers, 8 heads, window 120, FocalLoss. With `calibrate_on`, a
+    [units, 768] embedding array, the head's bias is shifted so that the
+    median unit of it scores 0.5: random scores would otherwise sit all on
+    one side of the threshold, and predict would find no segments or only
+    segments."""
     import torch
 
     from multimodaltopicsegmentation_torch.models import registry
     from multimodaltopicsegmentation_torch.models.base import TaggerConfig
     from multimodaltopicsegmentation_torch.train import checkpoints
 
-    cfg = TaggerConfig(embedding_dim=768, hidden_dim=256, num_layers=2, loss_fn="FocalLoss")
-    tagger = registry.build("BiLSTM", cfg, torch.Generator().manual_seed(0))
+    cfg = TaggerConfig(embedding_dim=768, hidden_dim=256, num_layers=2, nheads=8,
+                       attention_window=120, loss_fn="FocalLoss")
+    tagger = registry.build(architecture, cfg, torch.Generator().manual_seed(0)).eval()
     if calibrate_on is not None:
         x = torch.from_numpy(calibrate_on)[None]
         with torch.no_grad():
             scores = tagger.scores(x, torch.tensor([x.shape[1]]))
             tagger.classification.bias.sub_(scores.median())
-    checkpoints.save(path, tagger.to_jax_params(), cfg, "BiLSTM")
+    checkpoints.save(path, tagger.to_jax_params(), cfg, architecture)
     with open(hyp_path, "w") as f:
-        f.write("Sentence encoder: wav2vec_mean\nNeural architecture: BiLSTM\n"
+        f.write(f"Sentence encoder: wav2vec_mean\nNeural architecture: {architecture}\n"
                 "Hidden units: 256\nNumber of layers: 2\n")
+    return tagger
 
 
 def predict(tag, audio_dir, ckpt, hyp):
@@ -217,13 +375,140 @@ def main_path(kernels):
     return launches
 
 
+def write_embeddings(emb_dir, units, seed):
+    """Synthetic precomputed embeddings, one [n, 768] file per document."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    os.makedirs(emb_dir)
+    for d, n in enumerate(units):
+        np.save(os.path.join(emb_dir, f"doc{d}.npy"), rng.standard_normal((n, 768)).astype(np.float32))
+
+
+def long_document_path(flash_fwd, fused):
+    """Drive the predict CLI on cuda once per long-document tagger over ten
+    embedding files (two chunks of 8 and 2 documents, padded to 3600 and 512
+    units), then the fused kernel through local_attention(use_pallas=True).
+    -> ({kernel name: launches}, {architecture: its random tagger})."""
+    import pickle
+
+    import numpy as np
+    import torch
+
+    from multimodaltopicsegmentation_torch.cli.predict import cli_main
+    from multimodaltopicsegmentation_torch.ops.attention import local_attention
+
+    emb, emb_warm = os.path.join(WORK, "long_emb"), os.path.join(WORK, "long_emb_warm")
+    write_embeddings(emb, DOC_UNITS, seed=2)
+    write_embeddings(emb_warm, (100, 70), seed=3)
+    calibrate_on = np.load(os.path.join(emb, "doc7.npy"))  # the 400-unit document
+    total, taggers = 0, {}
+    for arch in TAGGERS:
+        ckpt = os.path.join(WORK, f"ckpt_{arch}", "best_model")
+        hyp = os.path.join(WORK, f"results_{arch}.txt")
+        taggers[arch] = write_checkpoint(ckpt, hyp, calibrate_on, arch)
+        common = ["-hyp", hyp, "-model", ckpt, "-bs", "8", "-rjs", "--device", "cuda"]
+        cli_main(common + ["-ef", emb_warm, "-exp", os.path.join(WORK, f"exp_warm_{arch}")])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        flash_fwd.launches = 0
+        t0 = time.perf_counter()
+        exp = os.path.join(WORK, f"exp_{arch}")
+        cli_main(common + ["-ef", emb, "-exp", exp])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = flash_fwd.launches
+        if n != 4:  # 2 layers x 2 chunks
+            raise RuntimeError(f"{arch}: the flash kernel was launched {n} times, expected 4")
+        total += n
+        with open(os.path.join(exp, "results.pkl"), "rb") as f:
+            results = pickle.load(f)
+        for d, units in enumerate(DOC_UNITS):
+            tags = results.get(f"doc{d}.npy")
+            if tags is None or len(tags) != units or set(tags) - {0, 1}:
+                raise RuntimeError(f"{arch}: doc{d} got {None if tags is None else len(tags)} "
+                                   f"tags for {units} units")
+        found = sum(sum(t) for t in results.values())
+        if not 0 < found < sum(DOC_UNITS):
+            raise RuntimeError(f"{arch}: {found} boundaries in {sum(DOC_UNITS)} units")
+        log(f"[long path] {arch}: predict on cuda, {len(DOC_UNITS)} documents, {sum(DOC_UNITS)} "
+            f"units in {wall:.3f} s = {sum(DOC_UNITS) / wall:.0f} units/s (checkpoint load + "
+            f"decode); {found} boundaries; flash launches {n}; peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    # K6's only caller, at the Transformer's first-layer shape
+    g = torch.Generator(device="cuda").manual_seed(1)
+    q, k, v = (torch.randn(8, 3600, 8, 96, device="cuda", generator=g).transpose(1, 2)
+               for _ in range(3))
+    mask = (torch.arange(3600, device="cuda")[None, :]
+            < torch.tensor(DOC_UNITS[:8], device="cuda")[:, None]).float()
+    fused.launches = 0
+    out = local_attention(q, k, v, 240, mask, use_pallas=True)
+    torch.cuda.synchronize()
+    if fused.launches == 0 or not torch.isfinite(out).all():
+        raise RuntimeError(f"fused kernel: {fused.launches} launches, finite "
+                           f"{torch.isfinite(out).all().item()}")
+    log(f"[long path] local_attention(use_pallas=True) [8, 8, 3600, 96] window 240: "
+        f"fused launches {fused.launches}")
+    return {"flash_local_attention": total, "fused_local_attention": fused.launches}, taggers
+
+
+def profiled(fn):
+    """Run fn() under torch.profiler -> (host wall s, device busy s or None,
+    the six costliest device activities). Device busy time is the union of
+    the CUDA activity intervals (kernels and copies), so that overlapping
+    ones are counted once."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy_us, end = 0.0, float("-inf")
+    for a, b in sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                       if e.device_type == DeviceType.CUDA):
+        busy_us += max(0.0, b - max(a, end))
+        end = max(end, b)
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:6]
+    return wall, (busy_us / 1e6 if events else None), top
+
+
+def log_profile(what, wall, busy, top):
+    share = (f"device busy {busy:.3f} s ({100 * busy / wall:.1f}% of the wall)" if busy is not None
+             else "device time not measured (the profiler recorded no CUDA activity)")
+    log(f"[breakdown] {what}: wall {wall:.3f} s, {share}")
+    for e in top:
+        log(f"[breakdown]   {e.self_device_time_total / 1e3:9.2f} ms  {e.count:5d}x  {e.key[:90]}")
+
+
+def breakdown_taggers(taggers):
+    """One decode of the first chunk's shape (8 documents padded to 3600
+    units) per long-document tagger."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.standard_normal((8, 3600, 768)).astype(np.float32)).cuda()
+    lengths = torch.tensor(DOC_UNITS[:8], device="cuda")
+    for arch, tagger in taggers.items():
+        tagger = tagger.cuda()
+        with torch.inference_mode():
+            tagger.decode(x, lengths, 0.5)  # warm-up
+            torch.cuda.synchronize()
+            wall, busy, top = profiled(lambda: tagger.decode(x, lengths, 0.5))
+        log_profile(f"{arch} decode of 8 x 3600 units", wall, busy, top)
+        tagger.cpu()
+
+
 def breakdown(seconds=MAIN_SECONDS):
     """Where the main path's time goes: the wav2vec2 encode of the main-path
     documents alone (host clock, synchronised), and the device time inside
     it from torch.profiler; the rest of the predict wall is host work."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from multimodaltopicsegmentation_torch.encoders.engine import Wav2Vec2Encoder
     from multimodaltopicsegmentation_torch.utils.audio import load_audio
@@ -237,26 +522,12 @@ def breakdown(seconds=MAIN_SECONDS):
     bounds = [[(i * SR, (i + 1) * SR) for i in range(int(s))] for s in seconds]
     enc.encode_document(docs[0], bounds[0])  # warm-up
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+
+    def encode():
         for audio, b in zip(docs, bounds):
             enc.encode_document(audio, b)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    # device busy time: the union of the CUDA activity intervals (kernels
-    # and copies), so that overlapping ones are counted once
-    busy_us, end = 0.0, float("-inf")
-    for a, b in sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                       if e.device_type == DeviceType.CUDA):
-        busy_us += max(0.0, b - max(a, end))
-        end = max(end, b)
-    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    top = sorted(events, key=lambda e: -e.self_device_time_total)[:6]
-    busy = (f"device busy {busy_us / 1e6:.3f} s ({100 * busy_us / 1e6 / wall:.1f}% of the wall)"
-            if events else "device time not measured (the profiler recorded no CUDA activity)")
-    log(f"[breakdown] encode of {sum(seconds) / 60:.2f} audio-min: wall {wall:.3f} s, {busy}")
-    for e in top:
-        log(f"[breakdown]   {e.self_device_time_total / 1e3:9.2f} ms  {e.count:5d}x  {e.key[:90]}")
+
+    log_profile(f"encode of {sum(seconds) / 60:.2f} audio-min", *profiled(encode))
 
 
 def card_vs_cpu():
@@ -281,6 +552,31 @@ def card_vs_cpu():
         raise RuntimeError(f"card and cpu disagree: {err}")
 
 
+def taggers_card_vs_cpu(taggers):
+    """Each long-document tagger's logits for a 400- and a 300-unit document
+    (padded to 512 units, as predict buckets them) on cuda and on the cpu."""
+    import numpy as np
+    import torch
+
+    from multimodaltopicsegmentation_torch.train.data import pad_batch
+
+    docs = [np.load(os.path.join(WORK, "long_emb", f"doc{d}.npy")) for d in (7, 9)]
+    batch = pad_batch([(e, [0] * len(e), str(i)) for i, e in enumerate(docs)], crf=False,
+                      bucket=True)
+    x, lengths = torch.from_numpy(batch["src_tokens"]), torch.from_numpy(batch["src_lengths"])
+    for arch, tagger in taggers.items():
+        with torch.inference_mode():
+            on_cpu = tagger.cpu().scores(x, lengths)
+            on_card = tagger.cuda().scores(x.cuda(), lengths.cuda()).cpu()
+        tagger.cpu()
+        err = max((on_card[b, :n] - on_cpu[b, :n]).abs().max().item()
+                  for b, n in enumerate(lengths.tolist()))
+        log(f"[card vs cpu] {arch} logits, {lengths.tolist()} units padded to {x.shape[1]}: "
+            f"max_abs_err {err:.3e} on valid units (atol 1e-3)")
+        if not err <= 1e-3 or not torch.isfinite(on_card).all():
+            raise RuntimeError(f"{arch}: card and cpu disagree: {err}")
+
+
 def main() -> int:
     import torch
 
@@ -290,6 +586,7 @@ def main() -> int:
         return 1
     from multimodaltopicsegmentation_torch.core import cuda_build
     from multimodaltopicsegmentation_torch.core.torch_setup import resolve_device
+    from multimodaltopicsegmentation_torch.ops import flash_attention as k2
     from multimodaltopicsegmentation_torch.ops import instance_norm_gelu as k1
 
     smi = subprocess.run(
@@ -312,15 +609,22 @@ def main() -> int:
 
     t = time.perf_counter()
     results = {"instance_norm_gelu": check_instance_norm_gelu(dev)}
+    results.update(check_flash_attention(dev))
     log(f"[phase] kernels vs plain: {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
     launches = main_path(kernels)
     log(f"[phase] main path: {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
+    long_launches, taggers = long_document_path(k2._flash_fwd, k2.fused_local_attention)
+    launches.update(long_launches)
+    log(f"[phase] long-document path: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
     breakdown()
+    breakdown_taggers(taggers)
     log(f"[phase] breakdown: {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
     card_vs_cpu()
+    taggers_card_vs_cpu(taggers)
     log(f"[phase] card vs cpu: {time.perf_counter() - t:.1f} s")
 
     for name, r in results.items():

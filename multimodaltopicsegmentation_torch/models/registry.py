@@ -1,5 +1,6 @@
 """Architecture registry: reference architecture names -> tagger classes
-(counterpart of the JAX package's models/registry.py; BiLSTM only so far)."""
+(counterpart of the JAX package's models/registry.py; the BiLSTM tagger and
+the long-document transformer taggers so far)."""
 from __future__ import annotations
 
 import torch
@@ -12,8 +13,33 @@ def build(architecture: str, cfg: TaggerConfig, generator: torch.Generator = Non
     """Instantiate a tagger by its reference architecture name."""
     if architecture == "BiLSTM":
         return taggers.BiLSTMTagger(cfg, generator)
+    if architecture in ("Transformer", "RecurrentLongT5", "BiLSTMRestrictedMHA",
+                        "RecurrentLongformer"):
+        from . import transformers as tr
+
+        if architecture == "Transformer":
+            # attention_window=0 encodes the dense (restricted=False) variant
+            # that a converted reference BertModel checkpoint carries
+            return tr.TransformerSegmenter(cfg, restricted=cfg.attention_window > 0,
+                                           generator=generator)
+        if architecture == "RecurrentLongT5":
+            return tr.RecurrentLongT5(cfg, generator)
+        return tr.RecurrentLongformer(cfg, generator=generator)
     raise NotImplementedError(
-        f"architecture {architecture!r} is not ported yet: the BiLSTM tagger is; "
-        "the transformer taggers, the CRF and the other BiLSTM variants are "
-        "ROADMAP.md section 1 items 9 and 10"
+        f"architecture {architecture!r} is not ported yet: the BiLSTM tagger and the "
+        "Transformer, RecurrentLongT5 and RecurrentLongformer taggers are; "
+        "Transformer-CRF, the CRF and the other BiLSTM variants are "
+        "ROADMAP.md section 1 item 10"
     )
+
+
+def is_crf(architecture: str) -> bool:
+    return architecture.lower().endswith("crf")
+
+
+def is_double_input(architecture: str) -> bool:
+    return architecture == "BiLSTMLateFusion"
+
+
+def is_domain_adapt(architecture: str) -> bool:
+    return architecture == "SwitchBiLSTM"

@@ -14,6 +14,9 @@ def test_port_modules_import_no_jax():
         "import multimodaltopicsegmentation_torch as pkg\n"
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
         "assert len(names) > 20, names\n"
+        "for new in ('ops.flash_attention', 'ops.attention', 'models.transformers',\n"
+        "            'models.registry'):\n"
+        "    assert pkg.__name__ + '.' + new in names, new\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"

@@ -8,6 +8,10 @@ packages' random-weight mode, and the JAX random weights are carried into
 the port with `from_jax_params`. The BiLSTM checkpoint is written by the
 JAX package. The `_mean` embeddings agree within 1e-4 and `results.pkl` and
 the segment wavs are identical.
+
+The transformer taggers' predict path is held the same way from a folder of
+`.npy` embeddings: one JAX-written random checkpoint per architecture, both
+predict CLIs with `-rjs`, identical `results.pkl`.
 """
 import dataclasses
 import os
@@ -26,6 +30,7 @@ from multimodaltopicsegmentation_torch.encoders import wav2vec2 as TW
 from multimodaltopicsegmentation_torch.utils.audio import save_wav
 
 SR = 16000
+TRANSFORMER_TAGGERS = ["Transformer", "RecurrentLongT5", "BiLSTMRestrictedMHA"]
 
 
 def _write_wavs(audio_dir, seconds=(7.4, 11.0), seed=0):
@@ -51,10 +56,14 @@ def same_weights(monkeypatch):
     monkeypatch.setattr(JW.Wav2Vec2Config, "base", classmethod(lambda cls: jcfg))
     monkeypatch.setattr(TW.Wav2Vec2Config, "base", classmethod(lambda cls: tcfg))
     monkeypatch.setattr(TW, "random_state_dict", lambda cfg, seed=0: TW.from_jax_params(params, cfg))
-    # the JAX predict decodes on a single device, as on one chip
+    _one_jax_device(monkeypatch)
+    return jcfg
+
+
+def _one_jax_device(monkeypatch):
+    """The JAX predict decodes on a single device, as on one chip."""
     devices = jax.devices
     monkeypatch.setattr(jax, "devices", lambda *a: devices(*a)[:1])
-    return jcfg
 
 
 def _checkpoint(tmp_path, embedding_dim):
@@ -103,6 +112,49 @@ def test_predict_cli_matches_jax(tmp_path, same_weights):
     assert t_results == j_results
     assert any(sum(tags) for tags in t_results.values())  # boundaries were found
     assert t_wavs == j_wavs and t_wavs
+
+
+@pytest.mark.parametrize("architecture", TRANSFORMER_TAGGERS)
+def test_predict_cli_transformer_taggers_match_jax(tmp_path, monkeypatch, architecture):
+    """Precomputed embeddings -> tags, three ragged documents in two chunks."""
+    import jax.numpy as jnp
+
+    from multimodaltopicsegmentation_tpu.cli.predict import cli_main as jax_predict
+    from multimodaltopicsegmentation_tpu.models import registry as jax_registry
+    from multimodaltopicsegmentation_torch.cli.predict import cli_main as torch_predict
+
+    _one_jax_device(monkeypatch)
+    rng = np.random.default_rng(0)
+    emb = tmp_path / "emb"
+    emb.mkdir()
+    docs = [rng.standard_normal((n, 32)).astype(np.float32) for n in (70, 9, 130)]
+    for d, x in enumerate(docs):
+        np.save(emb / f"doc{d}.npy", x)
+
+    cfg = JaxTaggerConfig(embedding_dim=32, hidden_dim=32, num_layers=2, nheads=4,
+                          attention_window=8, loss_fn="FocalLoss")
+    arch = jax_registry.build(architecture, cfg)
+    params = jax.tree.map(np.asarray, arch.init(jax.random.PRNGKey(1)))
+    params["cls"]["w"] = params["cls"]["w"] * 20.0
+    # the threshold goes between two scores of the first document
+    logits, _ = arch.decode(params, jnp.asarray(docs[0])[None], jnp.asarray([70]), 0.5)
+    ordered = np.sort(np.asarray(logits)[0, :, 0])
+    params["cls"]["b"] = params["cls"]["b"] - 0.5 * (ordered[34] + ordered[35])
+    ckpt = str(tmp_path / "ckpt" / "best_model")
+    jax_ckpt.save(ckpt, params, cfg, architecture)
+    hyp = tmp_path / "results.txt"
+    hyp.write_text(f"Sentence encoder: wav2vec_mean\nNeural architecture: {architecture}\n")
+
+    common = ["-ef", str(emb), "-hyp", str(hyp), "-model", ckpt, "-bs", "2", "-rjs"]
+    jax_predict(common + ["-exp", str(tmp_path / "jexp")])
+    torch_predict(common + ["-exp", str(tmp_path / "texp"), "--device", "cpu"])
+    results = []
+    for exp in ("jexp", "texp"):
+        with open(tmp_path / exp / "results.pkl", "rb") as f:
+            results.append(pickle.load(f))
+    assert results[1] == results[0]
+    assert [len(results[1][f"doc{d}.npy"]) for d in range(3)] == [70, 9, 130]
+    assert 0 < sum(results[1]["doc0.npy"]) < 70  # both tags occur
 
 
 def test_predict_cli_refuses_missing_cuda(tmp_path, same_weights):

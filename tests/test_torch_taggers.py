@@ -115,5 +115,6 @@ def test_checkpoint_name_grammar():
 
 
 def test_registry_refuses_unported_architectures():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        registry.build("Transformer", TaggerConfig())
+    for name in ("Transformer-CRF", "biLSTMCRF", "BiLSTMLateFusion"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md section 1 item 10"):
+            registry.build(name, TaggerConfig())
