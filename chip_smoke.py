@@ -7,13 +7,14 @@ Run from the repository root, on a machine with one CUDA card:
 
 Phases (any failure exits non-zero, and no result line is printed):
 
-1. build every CUDA kernel of the predict paths from csrc/ (one nvcc each,
-   started together);
+1. build every CUDA kernel from csrc/ (one nvcc each, started together);
 2. each kernel against its plain PyTorch version on the card, at the shapes
    the main paths give it, with its time beside its bound, the plain
    version's time and one PyTorch call computing the same function: K1
-   (instance norm + GELU), K2 (banded flash attention forward) and K6 (fused
-   local attention);
+   (instance norm + GELU), K2 (banded flash attention forward), K6 (fused
+   local attention) and the flash backward K4 (dq), K5 (dq + dbias) and K3
+   (dk, dv); then the four differentiable flash entries' gradients against
+   the plain path's;
 3. the audio path end to end: synthetic wavs, a random-weight BiLSTM
    checkpoint (embedding 768, h 256, 2 layers, FocalLoss) and the predict
    CLI with -ee on cuda under MTS_RANDOM_ENCODER_WEIGHTS=1 (random
@@ -28,8 +29,19 @@ Phases (any failure exits non-zero, and no result line is printed):
 5. a breakdown: host wall against device busy time from torch.profiler and
    the costliest device kernels, for the audio path's encode and for one
    8 x 3600 decode of each long-document tagger;
-6. the card against the CPU: one 20-unit document's _mean embeddings, and
-   each long-document tagger's logits on a 400- and a 300-unit document.
+6. the training path at full width: `Trainer.fit` over a synthetic corpus of
+   ten documents bucketed to 3600 units (768-dim embeddings, about 5 %
+   boundaries, seed 0) for Transformer (batch 10 x 3600, hidden 256, 2
+   layers, 8 heads, window 120, FocalLoss, Adam 1e-3), RecurrentLongT5,
+   BiLSTMRestrictedMHA and the BiLSTM + focal replication config, with the
+   backward kernels' counts set to 0 before each fit and read after it; then
+   `search_threshold` and `test`; then a few Transformer steps with dropout
+   0.1 and rematerialisation forced (one more K2 launch per layer, the losses
+   of the same steps without it); then the train CLI end to end on the same
+   corpus and the predict CLI on the checkpoint it wrote;
+7. the card against the CPU: one 20-unit document's _mean embeddings, each
+   long-document tagger's logits on a 400- and a 300-unit document, and each
+   tagger's first-step loss and gradient norm.
 
 The line before the last is a JSON object with one entry per kernel; the last
 line is {"ok": true, "device": {...}}. Working files go to build/chip_smoke/.
@@ -37,6 +49,7 @@ line is {"ok": true, "device": {...}}. Working files go to build/chip_smoke/.
 from __future__ import annotations
 
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -53,6 +66,17 @@ TAGGERS = ("Transformer", "RecurrentLongT5", "BiLSTMRestrictedMHA")
 # kernel checks: one batch of 8 padded to 3600 units, a zero-length and a full row
 CHECK_LENGTHS = (3600, 0, 3100, 2500, 2048, 1500, 900, 400)
 FLASH_SOURCE = "multimodaltopicsegmentation_torch/csrc/flash_local_attention.cu"
+FLASH_BWD_SOURCE = "multimodaltopicsegmentation_torch/csrc/flash_local_attention_bwd.cu"
+PALLAS = "multimodaltopicsegmentation_tpu/ops/pallas_attention.py"
+# the training path: units per document of the synthetic corpus (each buckets to
+# 3600), the taggers trained, epochs per fit (Adam at 1e-3 overshoots on its first
+# steps; the loss is back under its starting value within some ten steps)
+TRAIN_UNITS = (3600, 3600, 3400, 3100, 2900, 2500, 2100, 3600, 3300, 2800)
+TRAIN_TAGGERS = ("Transformer", "RecurrentLongT5", "BiLSTMRestrictedMHA", "BiLSTM")
+TRAIN_EPOCHS = 20
+# flash layers per tagger: (K2 forward, K4, K5, K3) launches of one train step without remat
+STEP_LAUNCHES = {"Transformer": (2, 2, 0, 2), "RecurrentLongT5": (2, 0, 2, 2),
+                 "BiLSTMRestrictedMHA": (2, 2, 0, 2), "BiLSTM": (0, 0, 0, 0)}
 # H100 SXM data sheet: HBM rate, float32 peak
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
@@ -197,6 +221,9 @@ def check_flash_attention(dev):
          CHECK_LENGTHS),
         ("K2 RecurrentLongformer", "K2", 8, 3600, 32, 120, False, True, False, CHECK_LENGTHS),
         ("K2 with a 0/1 tile", "K2", 2, 512, 64, 240, False, True, True, (512, 100)),
+        # training's shape: half 60 under a flash block of 64, so the tile's block != half
+        ("K2 BiLSTMRestrictedMHA, with a 0/1 tile", "K2", 8, 3600, 32, 120, False, True, True,
+         CHECK_LENGTHS),
         ("K6 Transformer layer 0", "K6", 8, 3600, 96, 240, False, True, False, CHECK_LENGTHS),
     ]
     rows = []
@@ -577,6 +604,485 @@ def taggers_card_vs_cpu(taggers):
             raise RuntimeError(f"{arch}: card and cpu disagree: {err}")
 
 
+def banded_pairs(lengths, L, half):
+    """(query, key) pairs that carry a gradient for THESE lengths: both below
+    the length and within `half` of each other."""
+    import numpy as np
+
+    total = 0
+    for n in lengths:
+        i = np.arange(min(n, L))
+        total += int((np.minimum(i + half, n - 1) - np.maximum(i - half, 0) + 1).sum())
+    return total
+
+
+def check_flash_backward(dev):
+    """K4, K5 and K3 against their plain versions at the training path's
+    shapes: whole tensors, ragged lengths with a zero-length row, a non-zero
+    cotangent on padded rows; and their times beside the bound, the plain
+    version and autograd through scaled_dot_product_attention."""
+    import torch
+    import torch.nn.functional as F
+
+    from multimodaltopicsegmentation_torch.ops import flash_attention as FA
+
+    H = 8
+    # (label, B, L, Dh, window, biased, scale, dropped, lengths)
+    cases = [
+        ("Transformer layer 0", 8, 3600, 96, 240, False, True, False, CHECK_LENGTHS),
+        ("Transformer layer 1", 8, 3600, 96, 120, False, True, False, CHECK_LENGTHS),
+        ("RecurrentLongT5, biased, unscaled", 8, 3600, 64, 240, True, False, False, CHECK_LENGTHS),
+        ("RecurrentLongformer", 8, 3600, 32, 120, False, True, False, CHECK_LENGTHS),
+        ("with a 0/1 tile", 2, 512, 64, 240, False, True, True, (512, 100)),
+        ("biased, unscaled, with a 0/1 tile", 2, 512, 64, 240, True, False, True, (512, 100)),
+        # the dropped entries' training shape: half 60 under a flash block of 64
+        ("BiLSTMRestrictedMHA, with a 0/1 tile", 8, 3600, 32, 120, False, True, True,
+         CHECK_LENGTHS),
+    ]
+    rows = []
+    for label, B, L, Dh, window, biased, scale, dropped, lengths in cases:
+        g = torch.Generator(device=dev).manual_seed(0)
+        q, k, v, do = (torch.randn(B, H, L, Dh, device=dev, generator=g) for _ in range(4))
+        if not scale:
+            # unscaled scores of unit-variance q and k have a deviation of sqrt(Dh) = 8
+            # and a one-hot softmax; the T5 blocks' projections of RMS-normed
+            # activations are about half that size each
+            q, k = 0.5 * q, 0.5 * k
+        mask = (torch.arange(L, device=dev)[None, :]
+                < torch.tensor(lengths, device=dev)[:, None]).float()
+        half = window // 2
+        block, nb, _ = FA._flash_geometry(L, half)
+        bias = 0.1 * torch.randn(H, block, 3 * block, device=dev, generator=g) if biased else None
+        drop = ((torch.rand(B * H, nb * block, 3 * block, device=dev, generator=g) < 0.9).float()
+                if dropped else None)
+        keep = 0.9 if dropped else 1.0
+        out, lse = FA._flash_fwd(q, k, v, mask, window, bias, scale, drop, keep)
+        dd = (do * out).sum(dim=-1)
+        common = (q, k, v, mask, lse, do, dd, window)
+        if biased:
+            run_dq = lambda: FA._flash_dq_dbias(*common, bias, scale, drop, keep)  # noqa: E731
+        else:
+            run_dq = lambda: (FA._flash_dq(*common, scale, drop, keep), None)  # noqa: E731
+        run_dkv = lambda: FA._flash_dkv(*common, bias, scale, drop, keep)  # noqa: E731
+        plain_dq = lambda: FA.flash_dq_reference(*common, bias, scale, drop, keep)  # noqa: E731
+        plain_dkv = lambda: FA.flash_dkv_reference(*common, bias, scale, drop, keep)  # noqa: E731
+        dq, dbias = run_dq()
+        dk, dv = run_dkv()
+        torch.cuda.synchronize()
+        want_dq, want_dbias = plain_dq()
+        want_dk, want_dv = plain_dkv()
+        # tile-wise summation order and expf against torch's exp
+        errs = {}
+        for name, got, want in (("dq", dq, want_dq), ("dbias", dbias, want_dbias),
+                                ("dk", dk, want_dk), ("dv", dv, want_dv)):
+            if want is not None:
+                torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+                errs[name] = (got - want).abs().max().item()
+        for b, n in enumerate(lengths):  # padded query rows: zero dq whatever their cotangent
+            if dq[b, :, n:].any():
+                raise RuntimeError(f"{label}: dq is not zero on the padded rows of batch row {b}")
+        del want_dq, want_dk, want_dv
+
+        library_ms = None
+        if not dropped:  # no one call applies a given 0/1 tile to the weights
+            am = sdpa_mask(lengths, L, half, dev, bias, block)
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            o = F.scaled_dot_product_attention(*leaves, attn_mask=am, scale=None if scale else 1.0)
+            do_valid = do * mask[:, None, :, None]
+            lib = lambda: torch.autograd.grad(o, leaves, do_valid, retain_graph=True)  # noqa: E731
+            # the yardstick computes the same gradients on every row with a key
+            for got, want in zip(lib(), (dq, dk, dv)):
+                for b, n in enumerate(lengths):
+                    torch.testing.assert_close(got[b, :, :n], want[b, :, :n], atol=1e-3, rtol=1e-3)
+            library_ms = time_ms(lib, iters=5, warmup=2)
+            del am, o, leaves
+        n = B * H * L
+        valid = H * sum(min(m, L) for m in lengths)
+        pairs = H * banded_pairs(lengths, L, half)
+        # what THESE lengths need: q, k, v, dO, lse and D of the rows below the
+        # length, the lengths, the bias tile, one 0/1 entry per pair
+        reads = (4 * Dh + 2) * valid * 4 + B * 4 + (bias.numel() * 4 if biased else 0) \
+            + (pairs * 4 if dropped else 0)
+        for kernel, run, plain, grads, flop, err_keys in (
+                ("K5" if biased else "K4", run_dq, plain_dq, 1, 6, ("dq", "dbias")),
+                ("K3", run_dkv, plain_dkv, 2, 8, ("dk", "dv"))):
+            ms = time_ms(run)
+            plain_ms = time_ms(plain, iters=5, warmup=2)
+            # the gradients are written on every row (zeros past the length), dbias once
+            bytes_moved = reads + grads * n * Dh * 4 + (bias.numel() * 4 if kernel == "K5" else 0)
+            ops = flop * Dh * pairs
+            bound_ms, bound_by = bound(bytes_moved, ops)
+            err = max(errs[key] for key in err_keys if key in errs)
+            lib_txt = "none" if library_ms is None else f"{library_ms:.4f} ms (dq, dk and dv in one call)"
+            log(f"[{kernel} {label}] [{B}, {H}, {L}, {Dh}] f32 window {window}: max_abs_err "
+                f"{err:.3e} (atol/rtol 1e-4, {' and '.join(k for k in err_keys if k in errs)}); "
+                f"kernel {ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: {ops / 1e9:.2f} GFLOP, "
+                f"{bytes_moved / 1e6:.0f} MB), plain {plain_ms:.4f} ms, autograd through "
+                f"scaled_dot_product_attention {lib_txt}")
+            rows.append({"kernel": kernel, "label": label, "shape": [B, H, L, Dh], "window": window,
+                         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                         "bound_by": bound_by, "library_ms": library_ms})
+        del q, k, v, do, out, dq, dk, dv
+
+    def entry(name, kernel, line):
+        mine = [r for r in rows if r["kernel"] == kernel]
+        head = mine[0]  # the first, full-width shape of the training path that runs it
+        return {
+            "name": name, "route": "cuda", "source": FLASH_BWD_SOURCE,
+            "replaces": f"{PALLAS}:{line}",
+            "max_abs_err": max(r["max_abs_err"] for r in mine),
+            "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+            "shapes": [{k: r[k] for k in r if k != "kernel"} for r in mine],
+        }
+
+    return {"flash_local_dq": entry("flash_local_dq", "K4", 239),
+            "flash_local_dq_dbias": entry("flash_local_dq_dbias", "K5", 279),
+            "flash_local_dkv": entry("flash_local_dkv", "K3", 324)}
+
+
+def check_autograd_entries(dev):
+    """Gradients of sum(sin(O) * W) through each of the four differentiable
+    entries on the card against the plain forward and backward, the dropped
+    ones with the tile that the same generator state draws."""
+    import torch
+
+    from multimodaltopicsegmentation_torch.ops import flash_attention as FA
+
+    B, H, L, Dh, window, rate, seed = 2, 8, 512, 64, 240, 0.1, 11
+    g = torch.Generator(device=dev).manual_seed(1)
+    q, k, v, w = (torch.randn(B, H, L, Dh, device=dev, generator=g) for _ in range(4))
+    q, k = 0.5 * q, 0.5 * k
+    mask = (torch.arange(L, device=dev)[None, :] < torch.tensor((512, 100), device=dev)[:, None]).float()
+    block, nb, _ = FA._flash_geometry(L, window // 2)
+    bias0 = 0.1 * torch.randn(H, block, 3 * block, device=dev, generator=g)
+    for name, biased, dropped in (("flash_local_attention", False, False),
+                                  ("flash_local_attention_biased", True, False),
+                                  ("flash_local_attention_dropped", False, True),
+                                  ("flash_local_attention_biased_dropped", True, True)):
+        tq, tk, tv, tb = (t.clone().requires_grad_() for t in (q, k, v, bias0))
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        if biased and dropped:
+            o = FA.flash_local_attention_biased_dropped(tq, tk, tv, mask, tb, gen, window, rate)
+        elif biased:
+            o = FA.flash_local_attention_biased(tq, tk, tv, mask, tb, window)
+        elif dropped:
+            o = FA.flash_local_attention_dropped(tq, tk, tv, mask, gen, window, rate)
+        else:
+            o = FA.flash_local_attention(tq, tk, tv, mask, window)
+        (torch.sin(o) * w).sum().backward()
+        torch.cuda.synchronize()
+
+        bias, scale = (bias0, False) if biased else (None, True)
+        tile, keep = None, 1.0
+        if dropped:
+            again = torch.Generator(device=dev).manual_seed(seed)
+            tile, keep = FA._drop_mask(again, rate, B, H, nb, block, dev), 1.0 - rate
+        out, lse = FA.flash_local_attention_reference(q, k, v, mask, window, bias, scale, tile, keep)
+        do = torch.cos(out) * w
+        dd = (do * out).sum(dim=-1)
+        want_dq, want_dbias = FA.flash_dq_reference(q, k, v, mask, lse, do, dd, window, bias, scale,
+                                                    tile, keep)
+        want_dk, want_dv = FA.flash_dkv_reference(q, k, v, mask, lse, do, dd, window, bias, scale,
+                                                  tile, keep)
+        err = 0.0
+        for got, want in ((tq.grad, want_dq), (tk.grad, want_dk), (tv.grad, want_dv),
+                          (tb.grad, want_dbias)):
+            if want is None:
+                if got is not None:
+                    raise RuntimeError(f"{name}: a gradient for a bias it was not given")
+                continue
+            torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+            err = max(err, (got - want).abs().max().item())
+        log(f"[autograd {name}] [{B}, {H}, {L}, {Dh}] window {window}: gradients against the plain "
+            f"path, max_abs_err {err:.3e} (atol/rtol 1e-4)")
+
+
+def write_corpus(root, units, seed):
+    """A synthetic training corpus on the reference's on-disk contract: one
+    [n, 768] embedding file per document, topic segments with distinct mean
+    vectors and about 5 % boundaries, labs_dict.pkl and a split JSON (7 train,
+    1 test, 2 validation). -> (embedding dir, labels file, split file, docs)."""
+    import pickle
+
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    emb_dir = os.path.join(root, "embeddings")
+    os.makedirs(emb_dir)
+    means = rng.standard_normal((16, 768)).astype(np.float32)
+    labs, docs = {}, []
+    for d, n in enumerate(units):
+        lab = (rng.random(n) < 0.05).astype(int)
+        lab[-1] = 1
+        segment = np.concatenate([[0], np.cumsum(lab)[:-1]])
+        topic = rng.integers(0, 16, segment[-1] + 1)
+        topic[1:] = np.where(topic[1:] == topic[:-1], (topic[1:] + 1) % 16, topic[1:])
+        emb = means[topic[segment]] + 0.5 * rng.standard_normal((n, 768)).astype(np.float32)
+        np.save(os.path.join(emb_dir, f"doc{d}.npy"), emb)
+        labs[f"doc{d}"] = lab.tolist()
+        train_lab = lab.tolist()
+        train_lab[-1] = 0  # as the loader zeroes it
+        docs.append((emb, train_lab, f"doc{d}.npy"))
+    labs_file, split_file = os.path.join(root, "labs_dict.pkl"), os.path.join(root, "split.json")
+    with open(labs_file, "wb") as f:
+        pickle.dump(labs, f)
+    names = [f"doc{d}.npy" for d in range(len(units))]
+    with open(split_file, "w") as f:
+        json.dump({"train": names[:7], "test": names[7:8], "validation": names[8:]}, f)
+    return emb_dir, labs_file, split_file, docs
+
+
+def flash_counters():
+    from multimodaltopicsegmentation_torch.ops import flash_attention as FA
+
+    return {"flash_local_attention": FA._flash_fwd, "flash_local_dq": FA._flash_dq,
+            "flash_local_dq_dbias": FA._flash_dq_dbias, "flash_local_dkv": FA._flash_dkv}
+
+
+def training_config():
+    from multimodaltopicsegmentation_torch.models.base import TaggerConfig
+
+    return TaggerConfig(embedding_dim=768, hidden_dim=256, num_layers=2, nheads=8,
+                        attention_window=120, loss_fn="FocalLoss", alpha=0.9, gamma=2.0)
+
+
+def training_path(docs):
+    """`Trainer.fit` at full width for each tagger over the ten-document
+    corpus in one batch of 10 x 3600 units, then `search_threshold` and
+    `test`. -> {kernel name: launches over the four fits}."""
+    import torch
+
+    from multimodaltopicsegmentation_torch.models import transformers as TT
+    from multimodaltopicsegmentation_torch.train.data import batches
+    from multimodaltopicsegmentation_torch.train.loop import Trainer, batches_to_device
+
+    counters = flash_counters()
+    total = dict.fromkeys(counters, 0)
+    train_batches = list(batches(docs, 10, crf=False, truncate=True, truncate_value=3600))
+    units = int(sum(b["src_lengths"].sum() for b in train_batches))
+    for arch in TRAIN_TAGGERS:
+        trainer = Trainer(arch, training_config(), lr=1e-3, optimizer="Adam",
+                          max_epochs=TRAIN_EPOCHS, no_early_stop=True, monitor="training_loss",
+                          check_dir=os.path.join(WORK, f"train_{arch}"), seed=0, device="cuda")
+        step, events = trainer._train_step, []
+
+        def timed(batch):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            loss = step(batch)
+            e1.record()
+            events.append((e0, e1))
+            return loss
+
+        trainer._train_step = timed
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        params, history = trainer.fit(train_batches)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: c.launches for name, c in counters.items()}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        trainer._train_step = step
+
+        steps = len(events)
+        times = sorted(e0.elapsed_time(e1) for e0, e1 in events[2:])
+        step_ms = times[len(times) // 2]
+        remat = [m.last_remat for m in trainer.tagger.modules()
+                 if isinstance(m, (TT.BertStyleEncoder, TT.LongT5Encoder))]
+        fwd, dq, dqb, dkv = STEP_LAUNCHES[arch]
+        if any(remat):
+            if not all(remat):
+                raise RuntimeError(f"{arch}: remat chosen for some encoder stacks only: {remat}")
+            fwd *= 2  # the recomputation runs the forward kernel once more
+        want = dict(zip(counters, (steps * fwd, steps * dq, steps * dqb, steps * dkv)))
+        if launches != want:
+            raise RuntimeError(f"{arch}: launches {launches} over {steps} steps, expected {want}")
+        losses = [h["training_loss"] for h in history]
+        if not (all(map(math.isfinite, losses)) and losses[-1] < losses[0]):
+            raise RuntimeError(f"{arch}: the training loss did not fall: {losses}")
+        if not os.path.exists(trainer.best_model_path):
+            raise RuntimeError(f"{arch}: no snapshot at {trainer.best_model_path}")
+        for name in total:
+            total[name] += launches[name]
+
+        th, th_pk = trainer.search_threshold(params, train_batches)
+        trainer.threshold = th
+        results, per_doc, scores = trainer.test(params, train_batches)
+        if len(per_doc) != len(docs) or not all(math.isfinite(v) for v in results.values()):
+            raise RuntimeError(f"{arch}: test gave {len(per_doc)} documents, results {results}")
+        per_step = {n: launches[n] // steps for n in launches}
+        log(f"[train] {arch}: fit of {steps} steps of 10 x 3600 ({units} units) in {wall:.3f} s; "
+            f"step {step_ms:.3f} ms (CUDA events, median of steps 3-{steps}) = "
+            f"{units / step_ms * 1e3:.0f} units/s; loss {losses[0]:.5f} -> {losses[-1]:.5f}; "
+            f"remat {any(remat)}; launches per step {per_step}; peak device memory {peak:.2f} GiB; "
+            f"search_threshold {th} (Pk {th_pk:.4f}); test Pk {results['test_loss']:.4f} "
+            f"F1 {results['F1_loss']:.4f} WD {results['WD_loss']:.4f}")
+        batch = batches_to_device(train_batches, "cuda")[0]
+        t0 = time.perf_counter()
+        log_profile(f"{arch} train step of 10 x 3600 units", *profiled(lambda: step(batch)))
+        log(f"[train] {arch}: the profiled step with the profiler's set-up and read-out took "
+            f"{time.perf_counter() - t0:.3f} s of this phase")
+        del trainer, batch
+        torch.cuda.empty_cache()
+    return total
+
+
+def remat_path(docs, steps=4):
+    """The Transformer's train step at full width with per-layer
+    rematerialisation forced on its encoder (the policy never chooses it on a
+    card this size), all dropout rates 0.1 so that each checkpointed layer
+    draws its 0/1 tiles again: `steps` Adam steps beside the same steps
+    without remat, same seeds. One more K2 launch per layer and step, and the
+    same losses. -> {kernel name: launches of both runs}."""
+    import dataclasses
+
+    import torch
+
+    from multimodaltopicsegmentation_torch.models import registry
+    from multimodaltopicsegmentation_torch.models import transformers as TT
+    from multimodaltopicsegmentation_torch.train.data import batches
+    from multimodaltopicsegmentation_torch.train.loop import batches_to_device, make_optimizer
+
+    counters = flash_counters()
+    total = dict.fromkeys(counters, 0)
+    cfg = dataclasses.replace(training_config(), dropout_in=0.1, dropout_out=0.1)
+    batch = batches_to_device(
+        list(batches(docs, 10, crf=False, truncate=True, truncate_value=3600)), "cuda")[0]
+    runs = {}
+    for remat in (False, True):
+        tagger = registry.build("Transformer", cfg, torch.Generator().manual_seed(0)).to("cuda")
+        encoders = [m for m in tagger.modules() if isinstance(m, TT.BertStyleEncoder)]
+        for m in encoders:
+            m.remat = remat
+        opt = make_optimizer("Adam", list(tagger.parameters()), 1e-3)
+        generator = torch.Generator(device="cuda").manual_seed(0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters.values():
+            c.launches = 0
+        losses, events = [], []
+        for _ in range(steps):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            opt.zero_grad(set_to_none=True)
+            loss = tagger.loss(batch["src_tokens"], batch["src_lengths"], batch["tgt_tokens"],
+                               generator=generator)
+            loss.backward()
+            opt.step()
+            e1.record()
+            losses.append(loss.detach())
+            events.append((e0, e1))
+        torch.cuda.synchronize()
+        launches = {name: c.launches for name, c in counters.items()}
+        want = dict(zip(counters, (steps * (4 if remat else 2), steps * 2, 0, steps * 2)))
+        if launches != want or [m.last_remat for m in encoders] != [remat]:
+            raise RuntimeError(f"remat {remat}: launches {launches} over {steps} steps, expected "
+                               f"{want}; encoders checkpointed: {[m.last_remat for m in encoders]}")
+        for name in total:
+            total[name] += launches[name]
+        runs[remat] = (torch.stack(losses).tolist(), e0.elapsed_time(e1),
+                       torch.cuda.max_memory_allocated() / 2**30)
+        del tagger, opt
+        torch.cuda.empty_cache()
+    (plain_losses, plain_ms, plain_peak), (losses, ms, peak) = runs[False], runs[True]
+    err = max(abs(a - b) for a, b in zip(plain_losses, losses))
+    log(f"[train] Transformer with remat forced and dropout 0.1, {steps} steps of 10 x 3600: "
+        f"4 K2 + 2 K4 + 2 K3 launches per step (2 + 2 + 2 without); losses {losses}, "
+        f"{err:.3e} from the stored run's (first step atol 1e-6, all 1e-4); last step {ms:.3f} ms, peak device "
+        f"memory {peak:.2f} GiB (stored: {plain_ms:.3f} ms, {plain_peak:.2f} GiB)")
+    # the first losses come from one draw on equal weights; later ones follow Adam
+    # steps on gradients that are summed in another order under recomputation
+    if not (all(map(math.isfinite, losses)) and abs(plain_losses[0] - losses[0]) <= 1e-6
+            and err <= 1e-4):
+        raise RuntimeError(f"remat: losses {losses} against {plain_losses} without")
+    return total
+
+
+def train_cli_path(emb_dir, labs_file, split_file):
+    """The train CLI end to end on cuda (Transformer, 2 epochs, threshold
+    search), then the predict CLI on the checkpoint it wrote.
+    -> {kernel name: launches}."""
+    import pickle
+
+    import torch
+
+    from multimodaltopicsegmentation_torch.cli import predict, train_fit
+
+    counters = flash_counters()
+    for c in counters.values():
+        c.launches = 0
+    exp = os.path.join(WORK, "exp_train_cli")
+    cwd = os.getcwd()
+    t0 = time.perf_counter()
+    try:
+        train_fit.cli_main([
+            "-exp", exp, "-arc", "Transformer", "-enc", "wav2vec", "-ef", emb_dir, "-lf", labs_file,
+            "-lr", "1e-3", "-hu", "256", "-nl", "2", "-nh", "8", "-window", "120", "-bs", "10",
+            "-max", "2", "-pat", "2", "-loss", "FocalLoss", "-split", split_file, "-sth", "-ar",
+            "-as", "--device", "cuda"])
+    finally:
+        os.chdir(cwd)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: c.launches for name, c in counters.items()}
+    with open(os.path.join(exp, "results.txt")) as f:
+        txt = f.read()
+    best = os.path.join(exp, "checkpoints", "best_model")
+    if "Mean Pk obtained is" not in txt or not os.path.exists(best):
+        raise RuntimeError(f"train_fit wrote no Pk line or no best_model under {exp}")
+    # 2 epochs x 1 batch x 2 layers, forward also for the validation loss and the decodes
+    want = {"flash_local_dq": 4, "flash_local_dq_dbias": 0, "flash_local_dkv": 4}
+    if any(launches[n] != c for n, c in want.items()) or launches["flash_local_attention"] < 8:
+        raise RuntimeError(f"train_fit: launches {launches}")
+    out = os.path.join(WORK, "exp_train_predict")
+    predict.cli_main(["-ef", emb_dir, "-hyp", os.path.join(exp, "results.txt"), "-model", best,
+                      "-exp", out, "-bs", "8", "-rjs", "--device", "cuda"])
+    with open(os.path.join(out, "results.pkl"), "rb") as f:
+        results = pickle.load(f)
+    for d, n in enumerate(TRAIN_UNITS):
+        tags = results.get(f"doc{d}.npy")
+        if tags is None or len(tags) != n or set(tags) - {0, 1}:
+            raise RuntimeError(f"predict on the trained checkpoint: doc{d} got "
+                               f"{None if tags is None else len(tags)} tags for {n} units")
+    pk = [ln for ln in txt.splitlines() if ln.startswith("Mean Pk")][0]
+    log(f"[train cli] train_fit -arc Transformer on cuda, 2 epochs of 7 documents + threshold "
+        f"search + test in {wall:.3f} s; {pk}; launches {launches}; predict served the "
+        f"checkpoint: {len(results)} documents")
+    return launches
+
+
+def training_card_vs_cpu(docs):
+    """The first step's loss and gradient norm of each tagger (dropout 0, seed
+    0) for a 3600- and a 2100-unit document, on cuda and on the cpu."""
+    import torch
+
+    from multimodaltopicsegmentation_torch.models import registry
+    from multimodaltopicsegmentation_torch.train.data import pad_batch
+
+    batch = pad_batch([docs[0], docs[6]], crf=False, truncate=True, truncate_value=3600)
+    x, lengths, tags = (torch.from_numpy(batch[k])
+                        for k in ("src_tokens", "src_lengths", "tgt_tokens"))
+    for arch in TRAIN_TAGGERS:
+        got = []
+        for device in ("cuda", "cpu"):
+            tagger = registry.build(arch, training_config(), torch.Generator().manual_seed(0))
+            tagger.to(device)
+            loss = tagger.loss(x.to(device), lengths.to(device), tags.to(device))
+            loss.backward()
+            norm = torch.sqrt(sum((p.grad * p.grad).sum() for p in tagger.parameters()))
+            got.append((loss.item(), norm.item()))
+        (l0, n0), (l1, n1) = got
+        log(f"[card vs cpu] {arch} first step, {lengths.tolist()} units: loss {l0:.6f} on the card, "
+            f"{abs(l0 - l1):.3e} from the cpu's; gradient norm {n0:.6f}, {abs(n0 - n1):.3e} from "
+            f"the cpu's (atol 1e-3)")
+        if not (abs(l0 - l1) <= 1e-3 and abs(n0 - n1) <= 1e-3):
+            raise RuntimeError(f"{arch}: card and cpu disagree on the first step: {got}")
+
+
 def main() -> int:
     import torch
 
@@ -610,6 +1116,8 @@ def main() -> int:
     t = time.perf_counter()
     results = {"instance_norm_gelu": check_instance_norm_gelu(dev)}
     results.update(check_flash_attention(dev))
+    results.update(check_flash_backward(dev))
+    check_autograd_entries(dev)
     log(f"[phase] kernels vs plain: {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
     launches = main_path(kernels)
@@ -623,8 +1131,17 @@ def main() -> int:
     breakdown_taggers(taggers)
     log(f"[phase] breakdown: {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
+    emb_dir, labs_file, split_file, docs = write_corpus(os.path.join(WORK, "train_corpus"),
+                                                        TRAIN_UNITS, seed=0)
+    for phase in (training_path(docs), remat_path(docs),
+                  train_cli_path(emb_dir, labs_file, split_file)):
+        for name, n in phase.items():
+            launches[name] = launches.get(name, 0) + n
+    log(f"[phase] training path: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
     card_vs_cpu()
     taggers_card_vs_cpu(taggers)
+    training_card_vs_cpu(docs)
     log(f"[phase] card vs cpu: {time.perf_counter() - t:.1f} s")
 
     for name, r in results.items():

@@ -1,0 +1,505 @@
+"""Training CLI with the reference's flag surface and on-disk outputs
+(counterpart of the JAX package's cli/train_fit.py), for one device.
+
+Same argparse flags (including the inverted-name store_false flags --NoLSTM /
+--unidirectional / --positional_encoding / --batch_second / --write_results),
+same experiment folder layout (`logs`, `checkpoints/`, `results.txt`,
+`all_results.json`, `all_scores.json`, `*_fit_results.csv`), same encoder ->
+dimension table, same serial hyper-parameter grid and fold orchestration, and
+the same choice of the best configuration on the monitored validation loss.
+Checkpoints are written in the JAX package's pickle format, which both
+packages' predict CLIs read. `--device` picks the device (default `cuda`,
+which raises without a card; `cpu` runs the same code on the CPU).
+
+Not ported yet, refused by name when asked for: --parallel_grid,
+--device_epochs, --pipeline_stages, --sequence_shards, --expert_parallel on
+(ROADMAP.md section 1 items 13 and 14), --pca_reduce, --infer,
+--both_datasets, --zero_shot_labels, and the architectures the registry does
+not build (late fusion among them; item 10).
+"""
+from __future__ import annotations
+
+import argparse
+import itertools
+import json
+import os
+import re
+import sys
+
+import numpy as np
+
+from ..core.torch_setup import resolve_device
+from ..models import registry
+from ..models.base import TaggerConfig
+from ..train import checkpoints as ckpt_lib
+from ..train.data import batches, load_dataset_from_precomputed
+from ..train.loop import Trainer
+
+EMBEDDING_SIZES = {
+    "prosodic": 167,
+    "openl3_std": 1024,
+    "openl3/_mean_std": 1024,
+    "wav2vec_std": 1536,
+    "wav2vec/_mean_std": 1536,
+    "x-vectors": 512,
+    "openl3": 512,
+    "crepe_std": 512,
+    "crepe/mean_std": 512,
+    "crepe": 256,
+    "mfcc": 200,
+    "ecapa": 192,
+    "wav2vec": 768,
+    "radio_news_topseg": 768,
+    "non_news_topseg": 768,
+    "radio_news_roberta": 768,
+    "non_news_roberta": 768,
+    "CNN": 30,
+}
+
+# flags of the JAX CLI that this port still refuses: (attribute, is it asked for, where it stands)
+_NOT_PORTED = (
+    ("parallel_grid", lambda v: bool(v), "ROADMAP.md section 1 item 13"),
+    ("device_epochs", lambda v: bool(v), "ROADMAP.md section 1 item 13"),
+    ("pipeline_stages", lambda v: int(v or 0) > 1, "ROADMAP.md section 1 item 14"),
+    ("sequence_shards", lambda v: int(v or 0) > 1, "ROADMAP.md section 1 item 14"),
+    ("expert_parallel", lambda v: v == "on", "ROADMAP.md section 1 item 14"),
+    ("pca_reduce", lambda v: bool(v), "ROADMAP.md, left out of the training slice"),
+    ("infer", lambda v: bool(v), "ROADMAP.md, left out of the training slice"),
+    ("both_datasets", lambda v: bool(v), "ROADMAP.md, left out of the training slice"),
+    ("zero_shot_labels", lambda v: v is not None, "ROADMAP.md, left out of the training slice"),
+)
+
+
+def _resolve_monitored(val_loss: float) -> float:
+    """`parse_checkpoint_name` gives NaN for a `final=` checkpoint, whose name
+    carries no monitored loss; selection still needs a number, so fall back
+    to the reference's 0.5 and say so in the logs."""
+    if np.isnan(val_loss):
+        with open("logs", "a") as f:
+            f.write("Monitored loss synthesized: final= checkpoint carries no "
+                    "val loss; using 0.5 for config selection\n")
+        return 0.5
+    return val_loss
+
+
+def infer_embedding_dim(encoder: str, timing_file=None):
+    """The reference's dimension inference, '+' early-fusion sums included."""
+    if re.findall("sentence", encoder.lower()):
+        encs = ["/".join(e.split("/")[1:]) for e in encoder.split("+")]
+    else:
+        encs = encoder.split("+")
+    try:
+        dim = sum(EMBEDDING_SIZES[e] for e in encs)
+    except KeyError:
+        raise ValueError("Encoder not recognised, use one of the available options "
+                         "(x-vectors, openl3, mfcc, prosodic, CREPE, ecapa or wav2vec)")
+    return dim + 2 if timing_file is not None else dim
+
+
+def _write_grid_csv(path: str, grid: dict):
+    """{layers: [value per configuration]} as pandas' DataFrame.to_csv writes it."""
+    cols = list(grid)
+    with open(path, "w") as f:
+        f.write("," + ",".join(str(c) for c in cols) + "\n")
+        for i in range(max((len(grid[c]) for c in cols), default=0)):
+            f.write(",".join([str(i)] + [str(grid[c][i]) for c in cols]) + "\n")
+
+
+def main(args):
+    for name, asked, where in _NOT_PORTED:
+        if asked(getattr(args, name, None)):
+            raise SystemExit(f"--{name} is not ported yet ({where})")
+    device = resolve_device(args.device)
+    # an unported architecture fails here, before the experiment folder exists
+    registry.build(args.architecture, TaggerConfig(embedding_dim=8, hidden_dim=8, num_layers=1,
+                                                   nheads=2, attention_window=4))
+
+    assert not os.path.exists(args.experiment_name), (
+        "The name of this experiment has already been used: please change "
+        "experiment name or delete {} to use this name".format(args.experiment_name))
+    os.makedirs(args.experiment_name)
+
+    test = args.dataset == "BBC" or args.standard_split is not None
+    folds = load_dataset_from_precomputed(
+        args.embedding_folder,
+        args.lab_folder,
+        delete_last_sentence=args.delete_last_sentence,
+        k_folds=args.k_folds,
+        mask_inner_sentences=args.mask_inner_sentences,
+        mask_probability=args.mask_probability,
+        split=args.standard_split,
+        timing_info=args.timing_file,
+    )
+    val_folder = args.standard_split is not None
+    os.chdir(args.experiment_name)
+
+    CRF = registry.is_crf(args.architecture)
+    if args.architecture in ("Transformer", "BiLSTMRestrictedMHA", "RecurrentLongformer"):
+        truncate, tv = True, 3600  # the reference's fixed unit budget for these
+    else:
+        truncate, tv = False, 100
+
+    # assemble per-fold batch lists
+    fold_loaders = []
+    for fold in folds:
+        valid_split = int(len(fold[0]) * args.valid_percentage)
+        if args.no_validation or val_folder:
+            train_docs = fold[0]
+            valid_docs = fold[2] if (val_folder and not args.no_validation) else None
+        else:
+            train_docs = fold[0][:-valid_split]
+            valid_docs = fold[0][-valid_split:]
+        test_docs = fold[1]
+
+        def make_batches(docs, bs):
+            if not docs:
+                return None
+            return list(batches(docs, max(bs, 1), crf=CRF, truncate=truncate, truncate_value=tv))
+
+        bs = args.batch_size
+        test_batches = make_batches(test_docs, 1)
+        if not test_batches:
+            raise ValueError("There is something wrong with the test loader...")
+        fold_loaders.append((
+            make_batches(train_docs, min(bs, len(train_docs))),
+            make_batches(valid_docs, min(bs, len(valid_docs)) if valid_docs else bs),
+            test_batches,
+            fold,
+        ))
+
+    np.random.seed(int(args.seed))
+
+    # hyperparameter grid (works with or without -hs)
+    search_space = {
+        "hidden_units": [args.hidden_units],
+        "number_layers": [args.num_layers],
+        "dropin": [args.dropout_in],
+        "dropout": [args.dropout_out],
+    }
+    if args.hyperparameters_search:
+        if args.hidden_units_search_space:
+            search_space["hidden_units"] = args.hidden_units_search_space
+        if args.number_layers_search_space:
+            search_space["number_layers"] = args.number_layers_search_space
+        if args.dropout_in_search_space:
+            search_space["dropin"] = args.dropout_in_search_space
+        if args.dropout_out_search_space:
+            search_space["dropout"] = args.dropout_out_search_space
+    hyperparameters = list(itertools.product(
+        search_space["hidden_units"], search_space["number_layers"],
+        search_space["dropin"], search_space["dropout"]))
+
+    results_grid_f1 = {nl: [] for nl in search_space["number_layers"]}
+    results_grid_pk = {nl: [] for nl in search_space["number_layers"]}
+    results_grid_wd = {nl: [] for nl in search_space["number_layers"]}
+
+    with open("logs", "w") as f:
+        f.write("Training started all right...\n")
+
+    embedding_dim = infer_embedding_dim(args.encoder, args.timing_file)
+
+    monitor = "training_loss" if args.no_validation else "val_loss"
+    best_results = {"F1": 0, "Pk": 1, "WD": 1}
+    if args.metric.lower() == "b":
+        best_results["B"] = 0
+    best_results_val = (
+        float("inf") if args.metric in ("WD", "Pk") or not args.search_threshold else 0)
+    best_hu = best_nl = best_dropin = best_dropout = None
+    confidence = {}
+
+    for param_tuple in hyperparameters:
+        hu, nl, d_in, d_out = param_tuple
+        if args.hyperparameters_search:
+            with open("logs", "a") as f:
+                f.write("Results for model with {} hidden units, {} layers, {} dropout in, "
+                        "{} dropout out and {} batch size...\n".format(hu, nl, d_in, d_out,
+                                                                       args.batch_size))
+
+        fold_results = []
+        fold_all_results, fold_all_scores = {}, {}
+        for index, (train_loader, valid_loader, test_loader, fold) in enumerate(fold_loaders):
+            check_dir = "checkpoints" + (f"_{index}" if args.save_all_checkpoints else "")
+            os.makedirs(check_dir, exist_ok=True)
+
+            cfg = TaggerConfig(
+                embedding_dim=embedding_dim,
+                hidden_dim=hu,
+                num_layers=nl,
+                tagset_size=2,
+                bidirectional=args.unidirectional,  # store_false flag (reference quirk)
+                lstm=args.NoLSTM,  # store_false flag
+                dropout_in=d_in,
+                dropout_out=d_out,
+                loss_fn=args.loss_function,
+                nheads=args.number_heads,
+                attention_window=args.self_attention_window,
+                positional_encoding=args.positional_encoding,
+                switch=args.switch,
+                cosine_loss=args.cosine_loss,
+            )
+            trainer = Trainer(
+                architecture=args.architecture,
+                cfg=cfg,
+                lr=args.learning_rate,
+                optimizer=args.optimizer,
+                max_epochs=args.max_epochs,
+                patience=args.patience,
+                no_early_stop=args.no_early_stop,
+                monitor=monitor,
+                check_dir=check_dir,
+                seed=int(args.seed),
+                gradient_clipping=args.gradient_clipping,
+                metric=args.metric,
+                use_end_boundary=args.use_end_boundary,
+                zero_baseline=args.zero_baseline,
+                device=device,
+            )
+
+            final_params, _ = trainer.fit(train_loader, None if args.no_validation else valid_loader)
+            parsed_th, parsed_loss = ckpt_lib.parse_checkpoint_name(trainer.best_model_path)
+            threshold = args.threshold if args.threshold else parsed_th
+            best_val_loss = args.threshold if args.threshold else _resolve_monitored(parsed_loss)
+            if args.search_threshold and valid_loader and not args.no_validation:
+                # pick the threshold on the validation documents; the
+                # configuration is then chosen on the searched metric itself
+                ckpt_params, _, _, _ = ckpt_lib.load(trainer.best_model_path)
+                threshold, sth_val = trainer.search_threshold(ckpt_params, valid_loader)
+                with open("logs", "a") as f:
+                    f.write(f"Threshold search: best={threshold} ({args.metric}={sth_val:.4f})\n")
+                best_val_loss = sth_val
+            if args.no_validation or args.save_last_epoch:
+                trainer.save_final(final_params)
+
+            params, _, _, _ = ckpt_lib.load(trainer.best_model_path)
+            # the reference always passes the (file-name or explicit) threshold
+            trainer.threshold = threshold
+            res, per_doc, scores = trainer.test(params, test_loader)
+            fold_results.append(res)
+
+            if args.metric.lower() in ("b", "scaiano"):
+                pk_label, wd_label, f1_label = "b_precision", "b_recall", "b_f1"
+                if args.metric.lower() == "scaiano":
+                    f1_label = "test_loss"
+            elif args.metric == "F1":
+                f1_label, pk_label, wd_label = "test_loss", "Pk_loss", "WD_loss"
+            elif args.metric == "WD":
+                f1_label, pk_label, wd_label = "F1_loss", "Pk_loss", "test_loss"
+            else:
+                f1_label, pk_label, wd_label = "F1_loss", "test_loss", "WD_loss"
+
+            with open("logs", "a") as f:
+                f.write("Results for fold number {}\n".format(index))
+                if args.metric.lower() in ("b", "scaiano"):
+                    f.write("B_precision score: {}\n".format(res[pk_label]))
+                    f.write("B_recall score: {}\n".format(res[wd_label]))
+                    f.write("B_F1 score: {}\n".format(res[f1_label]))
+                    if args.metric.lower() == "b":
+                        f.write("B Similarity score: {}\n".format(res["test_loss"]))
+                else:
+                    f.write("PK score: {}\n".format(res[pk_label]))
+                    f.write("WD score: {}\n".format(res[wd_label]))
+                    f.write("F1 score: {}\n".format(res[f1_label]))
+
+            if args.all_results:
+                for di, file in enumerate(fold[1]):
+                    d = dict(per_doc[di])
+                    if "test_loss" in d:
+                        d[args.metric] = d.pop("test_loss")
+                    fold_all_results[file[2]] = d
+            if args.all_scores:
+                for si, file in enumerate(fold[1]):
+                    fold_all_scores[file[2]] = scores[si].tolist()
+
+        # ---- best-configuration bookkeeping ----------------------------------
+        pick = (lambda label: fold_results[-1][label] if test
+                else float(np.mean([r[label] for r in fold_results])))
+        f1, pk, wd = pick(f1_label), pick(pk_label), pick(wd_label)
+        metrics_now = {"F1": f1, "Pk": pk, "WD": wd}
+        if args.metric.lower() == "b":
+            metrics_now["B"] = pick("test_loss")
+        if args.hyperparameters_search:
+            results_grid_f1[nl].append(f1)
+            results_grid_pk[nl].append(pk)
+            results_grid_wd[nl].append(wd)
+
+        # with -sth on a maximised metric (F1 / b / scaiano) the selection
+        # runs on the searched metric and must maximise
+        maximize_sel = args.search_threshold and args.metric not in ("Pk", "WD")
+        is_best = (best_val_loss > best_results_val if maximize_sel
+                   else best_val_loss < best_results_val)
+        if is_best:
+            best_results = metrics_now
+            best_results_val = best_val_loss
+            best_hu, best_nl, best_dropin, best_dropout = hu, nl, d_in, d_out
+            if args.all_results:
+                with open("all_results.json", "w") as f:
+                    json.dump(fold_all_results, f)
+            if args.all_scores:
+                with open("all_scores.json", "w") as f:
+                    json.dump(fold_all_scores, f)
+            best_name = os.path.join(check_dir, "best_model")
+            if os.path.exists(best_name):
+                os.remove(best_name)
+            os.rename(trainer.best_model_path, best_name)
+
+            if not test:
+                # cross-validation: bootstrap confidence intervals over folds
+                def bootstrap_ci(values, samples=10000):
+                    values = np.asarray(values, np.float64)
+                    rng_ = np.random.default_rng(0)
+                    boots = rng_.choice(values, size=(samples, len(values)),
+                                        replace=True).mean(axis=1)
+                    return (np.percentile(boots, 97.5) - np.percentile(boots, 2.5)) / 2
+
+                confidence = {
+                    "Pk": bootstrap_ci([r[pk_label] for r in fold_results]),
+                    "F1": bootstrap_ci([r[f1_label] for r in fold_results]),
+                    "WD": bootstrap_ci([r[wd_label] for r in fold_results]),
+                }
+                if args.metric.lower() == "b":
+                    confidence["B"] = bootstrap_ci([r["test_loss"] for r in fold_results])
+
+    if args.metric.lower() in ("b", "scaiano"):
+        label_map = {"Pk": "Precision", "WD": "Recall", "F1": "F1"}
+    else:
+        label_map = {"Pk": "Pk", "WD": "WD", "F1": "F1"}
+
+    output = [
+        "Results for experiment {} with following parameters:".format(args.experiment_name),
+        "Sentence encoder: {}".format(args.encoder),
+        "Neural architecture: {}".format(args.architecture),
+        "Batch size: {}".format(args.batch_size),
+        "Hidden units: {}".format(best_hu),
+        "Dropout in: {}".format(best_dropin),
+        "Dropout out: {}".format(best_dropout),
+        "Number of layers: {}".format(best_nl),
+        "Optimizer: {}".format(args.optimizer),
+    ]
+    if test:
+        output += [
+            "Mean {} obtained is {}".format(label_map["Pk"], best_results["Pk"]),
+            "Mean F1 obtained is {}".format(best_results["F1"]),
+            "Mean {} obtained is {}".format(label_map["WD"], best_results["WD"]),
+        ]
+        if args.metric.lower() == "b":
+            output.append("Mean Boundary Similarity obtained is {}".format(best_results["B"]))
+    else:
+        ci = "Mean {} obtained is {} with a 95% confidence interval of +- {}"
+        output += [
+            ci.format(label_map["Pk"], best_results["Pk"], confidence["Pk"]),
+            ci.format("F1", best_results["F1"], confidence["F1"]),
+            ci.format(label_map["WD"], best_results["WD"], confidence["WD"]),
+        ]
+        if args.metric.lower() == "b":
+            output.append(ci.format("Boundary Similarity", best_results["B"], confidence["B"]))
+
+    if args.write_results:
+        with open("results.txt", "w") as f:
+            for line in output:
+                f.write("\n" + line + "\n")
+
+    if args.hyperparameters_search:
+        grids = (results_grid_f1, results_grid_pk, results_grid_wd)
+        if args.write_results:
+            for name, grid in zip(("F1", "Pk", "WD"), grids):
+                _write_grid_csv(f"{name}_fit_results.csv", grid)
+        return output, grids
+    return output
+
+
+class MyParser(argparse.ArgumentParser):
+    def error(self, message):
+        sys.stderr.write("error: %s\n" % message)
+        self.print_help()
+        sys.exit(2)
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = MyParser(description="Train and test a topic-segmentation tagger on precomputed "
+                                  "embeddings")
+    parser.add_argument("--experiment_name", "-exp", default="new_experiment", type=str)
+    parser.add_argument("--dataset", "-data", default="choi", type=str)
+    parser.add_argument("--batch_size", "-bs", default=64, type=int)
+    parser.add_argument("--learning_rate", "-lr", default=0.01, type=float)
+    parser.add_argument("--valid_percentage", "-vp", default=0.1, type=float)
+    parser.add_argument("--encoder", "-enc", default="stsb-bert-base", type=str)
+    parser.add_argument("--encoder2", "-enc2", default=None, type=str)
+    parser.add_argument("--online_encoding", "-oe", action="store_true")
+    parser.add_argument("--patience", "-pat", default=20, type=int)
+    parser.add_argument("--architecture", "-arc", default="biLSTMCRF", type=str)
+    parser.add_argument("--hidden_units", "-hu", default=25, type=int)
+    parser.add_argument("--num_layers", "-nl", default=1, type=int)
+    parser.add_argument("--NoLSTM", action="store_false")
+    parser.add_argument("--number_heads", "-nh", default=8, type=int)
+    parser.add_argument("--positional_encoding", "-pe", action="store_false")
+    parser.add_argument("--threshold", "-th", default=0.0, type=float)
+    parser.add_argument("--unidirectional", action="store_false")
+    parser.add_argument("--max_length", type=int, required=False)
+    parser.add_argument("--dropout_in", "-d_in", default=0.0, type=float)
+    parser.add_argument("--dropout_out", "-d_out", default=0.0, type=float)
+    parser.add_argument("--batch_second", action="store_false")
+    parser.add_argument("--optimizer", "-opt", default="Adam", type=str)
+    parser.add_argument("--max_epochs", "-max", default=100, type=int)
+    parser.add_argument("--num_gpus", "-gpus", default=1, type=int)
+    parser.add_argument("--auto_lr_finder", "-auto_lr", action="store_true")
+    parser.add_argument("--save_all_checkpoints", "-savec", action="store_true")
+    parser.add_argument("--save_embeddings", "-savee", action="store_true")
+    parser.add_argument("--use_end_boundary", "-ueb", action="store_true")
+    parser.add_argument("--verbose", "-v", action="store_true")
+    parser.add_argument("--write_results", "-wr", action="store_false")
+    parser.add_argument("--hyperparameters_search", "-hs", action="store_true")
+    # accepted for the flag surface and refused when asked for (see _NOT_PORTED)
+    parser.add_argument("--parallel_grid", "-pg", action="store_true")
+    parser.add_argument("--pipeline_stages", "-pps", type=int, default=0)
+    parser.add_argument("--sequence_shards", "-sqs", type=int, default=0)
+    parser.add_argument("--expert_parallel", default="auto", choices=["auto", "on", "off"])
+    parser.add_argument("--device_epochs", "-de", action="store_true")
+    parser.add_argument("--switch", default="dense", choices=["dense", "lstm"])
+    parser.add_argument("--hidden_units_search_space", "-huss", nargs="*", type=int)
+    parser.add_argument("--number_layers_search_space", "-nlss", nargs="*", type=int)
+    parser.add_argument("--dropout_in_search_space", "-diss", nargs="*", type=float)
+    parser.add_argument("--dropout_out_search_space", "-doss", nargs="*", type=float)
+    parser.add_argument("--batch_size_search_space", "-bass", nargs="*", type=int)
+    parser.add_argument("--metric", default="Pk", type=str,
+                        choices=["Pk", "F1", "WD", "b", "scaiano"])
+    parser.add_argument("--delete_last_sentence", "-dls", action="store_true")
+    parser.add_argument("--zero_shot_labels", "-zsl", type=str, nargs="*")
+    parser.add_argument("--search_threshold", "-sth", action="store_true")
+    parser.add_argument("--cosine_loss", "-cos", action="store_true")
+    parser.add_argument("--gradient_clipping", "-gc", default=0.0, type=float)
+    parser.add_argument("--embedding_folder", "-ef", type=str, required=True)
+    parser.add_argument("--embedding_folder2", "-ef2", type=str, default=None)
+    parser.add_argument("--lab_folder", "-lf", type=str, required=True)
+    parser.add_argument("--inverse_augment", "-ia", action="store_true")
+    parser.add_argument("--zero_baseline", "-zb", action="store_true")
+    parser.add_argument("--loss_function", "-loss",
+                        choices=["CrossEntropy", "BinaryCrossEntropy", "FocalLoss"],
+                        default="CrossEntropy")
+    parser.add_argument("--seed", default=42)
+    parser.add_argument("--no_validation", "-no_val", action="store_true")
+    parser.add_argument("--no_early_stop", "-no_stop", action="store_true")
+    parser.add_argument("--save_last_epoch", "-s_last", action="store_true")
+    parser.add_argument("--pca_reduce", "-pca", action="store_true")
+    parser.add_argument("--pca_value", "-pca_v", default=167, type=int)
+    parser.add_argument("--all_results", "-ar", action="store_true")
+    parser.add_argument("--all_scores", "-as", action="store_true")
+    parser.add_argument("--k_folds", "-kcv", default=5, type=int)
+    parser.add_argument("--mask_inner_sentences", "-msk", action="store_true")
+    parser.add_argument("--mask_probability", "-msk_pr", default=0.9, type=float)
+    parser.add_argument("--standard_split", "-split", type=str)
+    parser.add_argument("--self_attention_window", "-window", default=120, type=int)
+    parser.add_argument("--both_datasets", "-bd", action="store_true")
+    parser.add_argument("--infer", action="store_true")
+    parser.add_argument("--timing_file", required=False, type=str)
+    parser.add_argument("--device", default="cuda",
+                        help="cuda (default; raises without a card) or cpu")
+    return parser
+
+
+def cli_main(argv=None):
+    args = build_parser().parse_args(argv)
+    return main(args)
+
+
+if __name__ == "__main__":
+    cli_main()

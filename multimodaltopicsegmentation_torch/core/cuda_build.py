@@ -21,7 +21,7 @@ from typing import Dict, Tuple
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-KERNELS = ("instance_norm_gelu", "flash_local_attention")
+KERNELS = ("instance_norm_gelu", "flash_local_attention", "flash_local_attention_bwd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -1,5 +1,6 @@
-"""Common tagger pieces (counterpart of the JAX package's models/base.py,
-inference side: the losses and `head_loss` come with the training slice)."""
+"""Common tagger pieces (counterpart of the JAX package's models/base.py):
+the config, the classification head's loss and decode, dropout with an
+explicit generator, and the linear init."""
 from __future__ import annotations
 
 import dataclasses
@@ -8,6 +9,9 @@ from typing import Optional
 
 import torch
 from torch import nn
+
+from ..ops import losses as losses_lib
+from ..ops.masks import length_mask
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,6 +50,36 @@ class TaggerConfig:
 
 def head_dim(cfg: TaggerConfig) -> int:
     return cfg.tagset_size if cfg.loss_fn == "CrossEntropy" else 1
+
+
+def head_loss(cfg: TaggerConfig, logits: torch.Tensor, lengths: torch.Tensor,
+              tags: torch.Tensor) -> torch.Tensor:
+    """The classification head's loss, shared by every non-CRF tagger, in the
+    reference's three branches (models/CRF.py:331-356): BCE and focal over
+    the unpadded positions; CE over ALL positions, relying on the -1 padding
+    label."""
+    L = logits.shape[1]
+    if cfg.loss_fn == "CrossEntropy":
+        return losses_lib.cross_entropy_ignore_index(
+            logits.reshape(-1, cfg.tagset_size), tags.reshape(-1).to(torch.int32))
+    mask = length_mask(lengths.to(logits.device), L, logits.dtype).reshape(-1)
+    flat = logits[..., 0].reshape(-1)
+    t = tags.reshape(-1).to(logits.dtype)
+    t = torch.where(mask > 0, t, 0.0)  # padded tags may be -1; masked out anyway
+    if cfg.loss_fn == "FocalLoss":
+        return losses_lib.sigmoid_focal_loss(flat, t, mask, cfg.alpha, cfg.gamma)
+    return losses_lib.bce_loss(flat, t, mask)
+
+
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator,
+            deterministic: bool) -> torch.Tensor:
+    """Inverted dropout drawn from an explicit generator on x's device.
+    Inactive when `deterministic`, without a generator, or at rate 0."""
+    if deterministic or generator is None or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    m = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(m, x / keep, 0.0)
 
 
 def head_decode(cfg: TaggerConfig, logits: torch.Tensor, threshold) -> torch.Tensor:

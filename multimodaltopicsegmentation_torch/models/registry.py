@@ -29,8 +29,17 @@ def build(architecture: str, cfg: TaggerConfig, generator: torch.Generator = Non
         f"architecture {architecture!r} is not ported yet: the BiLSTM tagger and the "
         "Transformer, RecurrentLongT5 and RecurrentLongformer taggers are; "
         "Transformer-CRF, the CRF and the other BiLSTM variants are "
-        "ROADMAP.md section 1 item 10"
+        "ROADMAP.md section 1 item 10, the first of its next slices"
     )
+
+
+def grads_from_jax(tagger, grads: dict) -> dict:
+    """JAX gradients (a pytree of arrays in the parameter layout, as
+    `jax.grad` of a tagger's loss gives them) -> {name: tensor} in the order
+    of `tagger.named_parameters()`, so that gradient parity is one comparison.
+    The layout maps as the parameters do."""
+    sd = type(tagger).from_jax_params(grads)
+    return {name: sd[name] for name, _ in tagger.named_parameters()}
 
 
 def is_crf(architecture: str) -> bool:

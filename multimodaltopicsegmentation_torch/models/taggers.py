@@ -4,7 +4,11 @@ models/taggers.py): recurrent stack -> linear head -> threshold decode.
 State-dict names follow the reference tagger (`model.rnn.weight_ih_l0`,
 `classification.weight`); under the reference Lightning module, whose keys
 gain a `model.` prefix, they are what tools/convert_reference_checkpoint.py
-reads. Inference only: dropout is inactive at decode in JAX as well.
+reads.
+
+`loss` runs the stack with dropout_in before it and dropout_out after it
+(applied outside the recurrent module, as the reference does), drawn from an
+explicit generator; without one, and at decode, dropout is inactive.
 """
 from __future__ import annotations
 
@@ -13,7 +17,7 @@ import torch
 from torch import nn
 
 from ..ops import rnn as rnn_lib
-from .base import TaggerConfig, head_decode, head_dim, linear
+from .base import TaggerConfig, dropout, head_decode, head_dim, head_loss, linear
 
 
 class BiLSTMTagger(nn.Module):
@@ -25,9 +29,21 @@ class BiLSTMTagger(nn.Module):
                                       cfg.bidirectional, cfg.lstm, generator)
         self.classification = linear(out_dim, head_dim(cfg), generator)
 
-    def scores(self, x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    def scores(self, x: torch.Tensor, lengths: torch.Tensor, train: bool = False,
+               generator: torch.Generator = None) -> torch.Tensor:
         """x [B, L, D], lengths [B] -> logits [B, L, head_dim]."""
-        return self.classification(self.model(x, lengths))
+        h = dropout(x, self.cfg.dropout_in, generator, not train)
+        h = dropout(self.model(h, lengths), self.cfg.dropout_out, generator, not train)
+        return self.classification(h)
+
+    def loss(self, x: torch.Tensor, lengths: torch.Tensor, tags: torch.Tensor,
+             generator: torch.Generator = None) -> torch.Tensor:
+        """Scalar training loss; `generator` (on x's device) turns dropout on."""
+        if self.cfg.cosine_loss:
+            raise NotImplementedError("the auxiliary cosine loss is not ported yet "
+                                      "(ROADMAP.md section 1 item 10)")
+        logits = self.scores(x, lengths, train=True, generator=generator)
+        return head_loss(self.cfg, logits, lengths, tags)
 
     def decode(self, x: torch.Tensor, lengths: torch.Tensor, threshold: float):
         logits = self.scores(x, lengths)

@@ -1,5 +1,5 @@
-"""Attention-based taggers for inference: the transformer / Longformer /
-LongT5 families (counterpart of the JAX package's models/transformers.py).
+"""Attention-based taggers: the transformer / Longformer / LongT5 families
+(counterpart of the JAX package's models/transformers.py).
 
 - `BertStyleEncoder`: BERT-style post-LN encoder over input embeddings with
   one learned positional table, dense or with a per-layer sliding window.
@@ -20,8 +20,26 @@ positional table is the JAX package's one folded [4096, D] table
 (`embeddings.position_table`), not HF's offset rows plus a token-type row.
 Each tagger converts with `from_jax_params` / `to_jax_params`.
 
-Inference only: dropout, the losses, rematerialisation, the
-sequence-parallel hooks and `TransformerCRF` are not here yet.
+Training. `loss(x, lengths, tags, generator)` runs the forward with
+`train=True`; dropout is active only with a generator (on x's device), which
+tensors are dropped and at which rate follows the JAX package: the BERT-style
+encoder drops its normalised embeddings and both sublayer outputs at
+dropout_in and its attention weights at dropout_out (0.1 on the dense
+variant, the HF default the reference never overrides); a LongT5 block drops
+its attention weights and both sublayer outputs at its one rate; the
+recurrent hybrids drop the LSTM's input at dropout_in and its output at
+dropout_out, and the bare local-MHA block its attention weights at 0.1.
+Validation and decode run without dropout.
+
+Rematerialisation. Each encoder layer may run under
+`torch.utils.checkpoint` (recompute in the backward instead of storing):
+`remat=True/False` forces it, `None` decides per call from an estimate of the
+stored bytes against a quarter of the card's own memory; on the CPU, where
+the blocked attention path stores banded score tensors, it stays on. A
+checkpointed layer that drops re-draws the same tiles: the generator is set
+back to its state at the layer's entry for the recomputation.
+
+The sequence-parallel hooks and `TransformerCRF` are not here yet.
 """
 from __future__ import annotations
 
@@ -31,17 +49,19 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops import rnn as rnn_lib
 from ..ops.attention import (
     dense_attention,
+    flash_attention_active,
     local_attention,
     merge_heads,
     relative_bias_fn,
     split_heads,
 )
 from ..ops.masks import length_mask
-from .base import TaggerConfig, head_decode, head_dim, linear
+from .base import TaggerConfig, dropout, head_decode, head_dim, head_loss, linear
 
 LAYER_NORM_EPS = 1e-12  # HF BertConfig/LongformerConfig default, which the reference runs
 MAX_POSITION = 4096
@@ -67,17 +87,78 @@ class RMSNorm(nn.Module):
         return x * torch.rsqrt(var + self.eps) * self.weight
 
 
-def _attend(query, key, value, x, nheads, mask, window=None, bias_fn=None, scale=True):
+def _attend(query, key, value, x, nheads, mask, window=None, bias_fn=None, scale=True,
+            probs_drop=0.0, generator=None):
     """Projections + attention core -> merged heads [B, L, D] (no output
-    projection). window None = dense."""
+    projection). window None = dense. probs_drop/generator: train-time
+    attention-probs dropout (no generator at eval)."""
     q = split_heads(query(x), nheads)
     k = split_heads(key(x), nheads)
     v = split_heads(value(x), nheads)
     if window is None:
-        out = dense_attention(q, k, v, mask)
+        out = dense_attention(q, k, v, mask, probs_drop=probs_drop, generator=generator)
     else:
-        out = local_attention(q, k, v, window, mask, bias_fn=bias_fn, scale=scale)
+        out = local_attention(q, k, v, window, mask, bias_fn=bias_fn, scale=scale,
+                              probs_drop=probs_drop, generator=generator)
     return merge_heads(out)
+
+
+# -- rematerialisation -------------------------------------------------------
+
+REMAT_MEMORY_SHARE = 4  # spend at most 1/4 of the card's memory on stored activations
+
+
+def _auto_remat(device, B, L, d_model, d_ff, nheads, layer_windows, share=1, attn_drop=0.0):
+    """Per-call rematerialisation policy: store activations when they fit
+    comfortably, recompute when they would not.
+
+    On a CUDA device (flash attention keeps the score tiles out of device
+    memory) the stored bytes are estimated as about 12 d_model-wide unit
+    tensors and 2 d_ff-wide FFN intermediates per layer, plus the softmax
+    weights where a layer is dense and, with active attention-probs dropout,
+    the largest layer's transient 0/1 tile; remat is OFF when `share` sibling
+    stacks of this size stay under a quarter of that device's memory.
+    Anywhere else the blocked path stores banded score tensors that the
+    estimate leaves out, and remat stays ON."""
+    device = torch.device(device)
+    if not flash_attention_active(device):
+        return True
+    from ..ops.flash_attention import _flash_geometry
+
+    est, mask_temp = 0, 0
+    for w in layer_windows:
+        est += B * L * (12 * d_model + 2 * d_ff) * 4
+        if w is None:  # dense layer: the stored softmax weights dominate
+            est += 2 * B * nheads * L * L * 4
+        elif attn_drop and attn_drop > 0.0:
+            block, nb, _ = _flash_geometry(L, w // 2)
+            mask_temp = max(mask_temp, B * nheads * nb * block * 3 * block * 4)
+    budget = torch.cuda.get_device_properties(device).total_memory // REMAT_MEMORY_SHARE
+    return (est + mask_temp) * share > budget
+
+
+def _checkpoint(fn, generator, *args):
+    """`fn(*args)` under torch.utils.checkpoint. The recomputation in the
+    backward runs with `generator` set back to its state at this call, so
+    that a layer that drops draws the same tiles again; the state the
+    generator had reached by then is put back afterwards."""
+    if generator is None:
+        return checkpoint(fn, *args, use_reentrant=False)
+    entry = generator.get_state()
+    calls = []
+
+    def run(*a):
+        calls.append(None)
+        if len(calls) == 1:
+            return fn(*a)
+        reached = generator.get_state()
+        generator.set_state(entry)
+        try:
+            return fn(*a)
+        finally:
+            generator.set_state(reached)
+
+    return checkpoint(run, *args, use_reentrant=False)
 
 
 # -- JAX pytree <-> state_dict leaves ---------------------------------------
@@ -147,22 +228,31 @@ class BertLayer(nn.Module):
         self.output = _bag(dense=lin(d_ff, d_model),
                            LayerNorm=nn.LayerNorm(d_model, eps=LAYER_NORM_EPS))
 
-    def forward(self, x, mask, window=None):
+    def forward(self, x, mask, window=None, train=False, generator=None, drop=0.0,
+                attn_drop=0.0):
+        """`drop` is HF hidden_dropout_prob, on both sublayer outputs;
+        `attn_drop` attention_probs_dropout_prob, on the softmaxed weights."""
         att = getattr(self.attention, "self")
-        a = _attend(att.query, att.key, att.value, x, self.nheads, mask, window)
-        x = self.attention.output.LayerNorm(x + self.attention.output.dense(a))
+        a = _attend(att.query, att.key, att.value, x, self.nheads, mask, window,
+                    probs_drop=attn_drop if train else 0.0, generator=generator if train else None)
+        a = dropout(self.attention.output.dense(a), drop, generator, not train)
+        x = self.attention.output.LayerNorm(x + a)
         # jax.nn.gelu's default is the tanh approximation
-        h = F.gelu(self.intermediate.dense(x), approximate="tanh")
-        return self.output.LayerNorm(x + self.output.dense(h))
+        h = self.output.dense(F.gelu(self.intermediate.dense(x), approximate="tanh"))
+        return self.output.LayerNorm(x + dropout(h, drop, generator, not train))
 
 
 class BertStyleEncoder(nn.Module):
-    """windows: None (dense) or one window per layer."""
+    """windows: None (dense) or one window per layer. drop / attn_drop: the
+    train-time rates (see `BertLayer.forward`). remat: True/False forces
+    per-layer checkpointing in training, None decides by `_auto_remat`."""
 
-    def __init__(self, d_model, nheads, n_layers, d_ff, windows, max_position=MAX_POSITION,
-                 generator=None):
+    def __init__(self, d_model, nheads, n_layers, d_ff, windows, drop=0.0,
+                 max_position=MAX_POSITION, remat=None, attn_drop=0.0, generator=None):
         super().__init__()
+        self.d_model, self.nheads, self.d_ff = d_model, nheads, d_ff
         self.windows = windows
+        self.drop, self.attn_drop, self.remat = drop, attn_drop, remat
         table = torch.empty(max_position, d_model).normal_(generator=generator) * 0.02
         emb = _bag(LayerNorm=nn.LayerNorm(d_model, eps=LAYER_NORM_EPS))
         emb.position_table = nn.Parameter(table)
@@ -170,16 +260,33 @@ class BertStyleEncoder(nn.Module):
         self.encoder = _bag(layer=nn.ModuleList(
             BertLayer(d_model, nheads, d_ff, generator) for _ in range(n_layers)))
 
-    def forward(self, x, lengths):
-        L = x.shape[1]
+    def forward(self, x, lengths, train=False, generator=None):
+        B, L, _ = x.shape
         table = self.embeddings.position_table
         if L > table.shape[0]:
             raise ValueError(f"{L} units exceed the positional table's {table.shape[0]} rows")
         mask = length_mask(lengths.to(x.device), L, x.dtype)
         x = self.embeddings.LayerNorm(x + table[:L][None])
+        # HF BertEmbeddings drop the normalised embeddings at hidden_dropout_prob
+        x = dropout(x, self.drop, generator, not train)
+        remat = train and torch.is_grad_enabled() and self._use_remat(x.device, B, L, generator)
+        self.last_remat = remat
         for i, layer in enumerate(self.encoder.layer):
-            x = layer(x, mask, None if self.windows is None else self.windows[i])
+            w = None if self.windows is None else self.windows[i]
+
+            def one_layer(x, mask, _layer=layer, _w=w):
+                return _layer(x, mask, _w, train, generator, self.drop, self.attn_drop)
+
+            x = _checkpoint(one_layer, generator, x, mask) if remat else one_layer(x, mask)
         return x
+
+    def _use_remat(self, device, B, L, generator):
+        if self.remat is not None:
+            return self.remat
+        windows = self.windows if self.windows is not None else [None] * len(self.encoder.layer)
+        dropping = generator is not None and self.attn_drop > 0.0
+        return _auto_remat(device, B, L, self.d_model, self.d_ff, self.nheads, windows,
+                           attn_drop=self.attn_drop if dropping else 0.0)
 
     @staticmethod
     def from_jax_params(p: dict, prefix: str) -> dict:
@@ -229,9 +336,15 @@ class LongT5Encoder(nn.Module):
     shared linear does; a converted reference checkpoint holds zeros). One
     relative-bias table, held by block 0 as in HF, serves every block."""
 
-    def __init__(self, d_model, nheads, n_layers, d_ff, window, generator=None):
+    def __init__(self, d_model, nheads, n_layers, d_ff, window, drop=0.0, remat=None,
+                 remat_share=1, generator=None):
         super().__init__()
-        self.nheads = nheads
+        self.d_model, self.nheads, self.d_ff = d_model, nheads, d_ff
+        # one rate for the attention weights and both sublayer outputs (HF T5's dropout_rate)
+        self.drop, self.remat = drop, remat
+        # sibling encoder stacks sharing the remat budget (RecurrentLongT5
+        # interleaves num_layers one-block stacks in one loss)
+        self.remat_share = remat_share
         self.num_buckets = max(4, window)
         self.max_distance = window + 1
         self.window = 2 * window
@@ -252,17 +365,34 @@ class LongT5Encoder(nn.Module):
         self.encoder = _bag(block=nn.ModuleList(blocks), final_layer_norm=RMSNorm(d_model))
         self._bias_fn = relative_bias_fn(rel.weight, self.num_buckets, self.max_distance)
 
-    def forward(self, x, lengths):
-        mask = length_mask(lengths.to(x.device), x.shape[1], x.dtype)
+    def forward(self, x, lengths, train=False, generator=None):
+        B, L, _ = x.shape
+        mask = length_mask(lengths.to(x.device), L, x.dtype)
+        remat = train and torch.is_grad_enabled() and self._use_remat(x.device, B, L, generator)
+        self.last_remat = remat
         for block in self.encoder.block:
-            sa, ff = block.layer[0], block.layer[1]
-            a = sa.LocalSelfAttention
-            h = _attend(a.q, a.k, a.v, sa.layer_norm(x), self.nheads, mask, self.window,
-                        bias_fn=self._bias_fn, scale=False)  # T5 attention is unscaled
-            x = x + a.o(h)
-            h = ff.layer_norm(x)
-            x = x + ff.DenseReluDense.wo(F.relu(ff.DenseReluDense.wi(h)))
+
+            def one_block(x, mask, _block=block):
+                sa, ff = _block.layer[0], _block.layer[1]
+                a = sa.LocalSelfAttention
+                h = _attend(a.q, a.k, a.v, sa.layer_norm(x), self.nheads, mask, self.window,
+                            bias_fn=self._bias_fn, scale=False,  # T5 attention is unscaled
+                            probs_drop=self.drop if train else 0.0,
+                            generator=generator if train else None)
+                x = x + dropout(a.o(h), self.drop, generator, not train)
+                h = ff.DenseReluDense.wo(F.relu(ff.DenseReluDense.wi(ff.layer_norm(x))))
+                return x + dropout(h, self.drop, generator, not train)
+
+            x = _checkpoint(one_block, generator, x, mask) if remat else one_block(x, mask)
         return self.encoder.final_layer_norm(x)
+
+    def _use_remat(self, device, B, L, generator):
+        if self.remat is not None:
+            return self.remat
+        dropping = generator is not None and self.drop > 0.0
+        return _auto_remat(device, B, L, self.d_model, self.d_ff, self.nheads,
+                           [self.window] * len(self.encoder.block), share=self.remat_share,
+                           attn_drop=self.drop if dropping else 0.0)
 
     @staticmethod
     def from_jax_params(p: dict, prefix: str) -> dict:
@@ -310,7 +440,13 @@ def pyramidal_windows(window: int, n_layers: int) -> List[int]:
 
 
 class _Tagger(nn.Module):
-    """scores -> decode, and the state-dict view the converters work on."""
+    """scores -> loss / decode, and the state-dict view the converters work on."""
+
+    def loss(self, x: torch.Tensor, lengths: torch.Tensor, tags: torch.Tensor,
+             generator: torch.Generator = None) -> torch.Tensor:
+        """Scalar training loss; `generator` (on x's device) turns dropout on."""
+        logits = self.scores(x, lengths, train=True, generator=generator)
+        return head_loss(self.cfg, logits, lengths, tags)
 
     def decode(self, x: torch.Tensor, lengths: torch.Tensor, threshold: float):
         logits = self.scores(x, lengths)
@@ -323,19 +459,26 @@ class _Tagger(nn.Module):
 
 class TransformerSegmenter(_Tagger):
     """Pyramidal local-attention encoder (or a dense one) + classification
-    head; d_model = embedding_dim, FFN width = hidden_dim."""
+    head; d_model = embedding_dim, FFN width = hidden_dim.
+
+    Train-time dropout as the reference's HF configs have it: hidden dropout
+    = dropout_in, attention-probs dropout = dropout_out on the restricted
+    path; the dense path never sets its attention-probs rate and so trains at
+    BertConfig's default 0.1 whatever the flags say."""
 
     def __init__(self, cfg: TaggerConfig, restricted: bool = True,
                  generator: torch.Generator = None):
         super().__init__()
         self.cfg = cfg
         windows = pyramidal_windows(cfg.attention_window, cfg.num_layers) if restricted else None
-        self.model = _bag(model=BertStyleEncoder(cfg.embedding_dim, cfg.nheads, cfg.num_layers,
-                                                 cfg.hidden_dim, windows, generator=generator))
+        self.model = _bag(model=BertStyleEncoder(
+            cfg.embedding_dim, cfg.nheads, cfg.num_layers, cfg.hidden_dim, windows,
+            drop=cfg.dropout_in, attn_drop=cfg.dropout_out if restricted else 0.1,
+            generator=generator))
         self.classification = linear(cfg.embedding_dim, head_dim(cfg), generator)
 
-    def scores(self, x, lengths):
-        return self.classification(self.model.model(x, lengths))
+    def scores(self, x, lengths, train=False, generator=None):
+        return self.classification(self.model.model(x, lengths, train, generator))
 
     @staticmethod
     def from_jax_params(params: dict) -> dict:
@@ -361,17 +504,22 @@ class RecurrentLongT5(_Tagger):
         for _ in range(cfg.num_layers):
             blocks.append(_bag(
                 lstm=rnn_lib.RNNStack(in_dim, cfg.hidden_dim, 1, generator=generator),
-                transformer=_bag(model=LongT5Encoder(d, cfg.nheads, 1, d, cfg.attention_window,
-                                                     generator)),
+                transformer=_bag(model=LongT5Encoder(
+                    d, cfg.nheads, 1, d, cfg.attention_window, drop=cfg.dropout_in,
+                    remat_share=cfg.num_layers, generator=generator)),
             ))
             in_dim = d
         self.model = nn.ModuleList(blocks)
         self.classification = linear(d, head_dim(cfg), generator)
 
-    def scores(self, x, lengths):
+    def scores(self, x, lengths, train=False, generator=None):
+        # each LSTM sits in the reference's RNN wrapper: dropout_in on its
+        # input, dropout_out on its output (train only)
         h = x
         for block in self.model:
-            h = block.transformer.model(block.lstm(h, lengths), lengths)
+            h = dropout(h, self.cfg.dropout_in, generator, not train)
+            h = dropout(block.lstm(h, lengths), self.cfg.dropout_out, generator, not train)
+            h = block.transformer.model(h, lengths, train, generator)
         return self.classification(h)
 
     @staticmethod
@@ -400,7 +548,11 @@ class RecurrentLongformer(_Tagger):
     output projection, residual or LayerNorm. With
     `separate_forward_backward`, queries AND values come from the forward
     LSTM half `h[..., :H]` and only the keys from the backward half. Scores
-    are scaled by 1/sqrt(head_dim); an odd window is rounded up."""
+    are scaled by 1/sqrt(head_dim); an odd window is rounded up. The
+    reference never sets the block's attention-probs dropout, so it trains at
+    the HF config default of 0.1."""
+
+    NOFFN_ATTN_DROP = 0.1
 
     def __init__(self, cfg: TaggerConfig, separate_forward_backward: bool = True,
                  last_bilstm: bool = True, generator: torch.Generator = None):
@@ -428,12 +580,14 @@ class RecurrentLongformer(_Tagger):
         self.model = nn.ModuleList(blocks)
         self.classification = linear(out_dim, head_dim(cfg), generator)
 
-    def scores(self, x, lengths):
+    def scores(self, x, lengths, train=False, generator=None):
         H, nh = self.cfg.hidden_dim, self.cfg.nheads
         mask = length_mask(lengths.to(x.device), x.shape[1], x.dtype)
+        din, dout = self.cfg.dropout_in, self.cfg.dropout_out
         h = x
         for block in list(self.model)[: self.cfg.num_layers]:
-            h = block.lstm(h, lengths)
+            h = dropout(h, din, generator, not train)
+            h = dropout(block.lstm(h, lengths), dout, generator, not train)
             if self.sep_fb:
                 q_src, k_src = h[..., :H], h[..., H:]
                 v_src = q_src
@@ -442,9 +596,12 @@ class RecurrentLongformer(_Tagger):
             att = getattr(block.transformer.model.attention, "self")
             h = merge_heads(local_attention(
                 split_heads(att.query(q_src), nh), split_heads(att.key(k_src), nh),
-                split_heads(att.value(v_src), nh), self.window, mask))
+                split_heads(att.value(v_src), nh), self.window, mask,
+                probs_drop=self.NOFFN_ATTN_DROP if train else 0.0,
+                generator=generator if train else None))
         if self.last_bilstm:
-            h = self.model[self.cfg.num_layers](h, lengths)
+            h = dropout(h, din, generator, not train)
+            h = dropout(self.model[self.cfg.num_layers](h, lengths), dout, generator, not train)
         return self.classification(h)
 
     @staticmethod

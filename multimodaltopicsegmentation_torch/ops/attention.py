@@ -1,5 +1,5 @@
 """Attention ops: dense MHA and sliding-window (local) attention
-(counterpart of the JAX package's ops/attention.py, inference side).
+(counterpart of the JAX package's ops/attention.py).
 
 `dense_attention` stays plain torch with an additive NEG_INF mask, as in JAX.
 A boolean-masked scaled_dot_product_attention would give NaN for the
@@ -16,8 +16,10 @@ long-document taggers. Three routes, picked as in JAX:
   a CUDA tensor, unbiased-and-scaled or biased;
 - the older fused forward-only kernel (K6): `use_pallas=True`.
 
-Attention-probs dropout (`probs_drop`, `rng`) comes with the port of training.
-Also here: T5 relative-position bucketing for the LongT5-style encoder.
+Attention-probs dropout (`probs_drop`, `generator`; HF semantics, on the
+softmaxed weights) is active only with a generator and a rate above 0: the
+flash route then takes the dropped entries, the blocked path draws its own
+tile. Also here: T5 relative-position bucketing for the LongT5-style encoder.
 """
 from __future__ import annotations
 
@@ -29,12 +31,36 @@ import torch.nn.functional as F
 NEG_INF = -1e9
 
 
-def dense_attention(q, k, v, mask=None):
-    """q, k, v: [B, H, L, Dh]; mask: [B, L] float (1 = valid key)."""
+def flash_attention_active(where) -> bool:
+    """Whether `local_attention`'s "auto" dispatch takes the flash kernels for
+    the library's calls on `where` (a tensor or a device): true on CUDA."""
+    device = where.device if isinstance(where, torch.Tensor) else torch.device(where)
+    return device.type == "cuda"
+
+
+def _drop_active(probs_drop: float, generator) -> bool:
+    return generator is not None and probs_drop > 0.0
+
+
+def _drop_probs(w, rate: float, generator):
+    """Attention-probs dropout, HF semantics: zero softmaxed weights and
+    rescale the survivors by 1/keep. Inactive without a generator (eval) or
+    at rate 0. The generator lives on w's device."""
+    if not _drop_active(rate, generator):
+        return w
+    keep = 1.0 - rate
+    m = torch.rand(w.shape, generator=generator, device=w.device) < keep
+    return torch.where(m, w / keep, 0.0)
+
+
+def dense_attention(q, k, v, mask=None, probs_drop: float = 0.0, generator=None):
+    """q, k, v: [B, H, L, Dh]; mask: [B, L] float (1 = valid key);
+    probs_drop/generator: train-time attention-probs dropout."""
     scores = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(q.shape[-1])
     if mask is not None:
         scores = scores + (1.0 - mask[:, None, None, :]) * NEG_INF
-    return torch.matmul(torch.softmax(scores, dim=-1), v)
+    w = _drop_probs(torch.softmax(scores, dim=-1), probs_drop, generator)
+    return torch.matmul(w, v)
 
 
 def _band_mask(block: int, half: int, dtype=torch.float32, device=None) -> torch.Tensor:
@@ -131,7 +157,7 @@ def _blocked_attention(q, k, v, half: int, block: int, mask=None, lengths=None, 
 
 
 def local_attention(q, k, v, window: int, mask=None, bias_fn=None, use_pallas="auto",
-                    scale: bool = True):
+                    scale: bool = True, probs_drop: float = 0.0, generator=None):
     """Sliding-window attention. q, k, v: [B, H, L, Dh]; window = total span
     (window/2 on each side, must be even); mask: [B, L] float, 1 = valid.
 
@@ -143,16 +169,22 @@ def local_attention(q, k, v, window: int, mask=None, bias_fn=None, use_pallas="a
     flash kernel for a CUDA tensor (scaled, or biased) and the blocked
     plain-torch path otherwise; "flash" forces the flash kernel's wrapper
     and False the blocked path; True forces the fused forward-only kernel,
-    which takes neither a bias nor an unscaled call. The kernels need prefix
-    masks: every caller's come from `length_mask`.
+    which takes neither a bias, an unscaled call nor dropout. The kernels
+    need prefix masks: every caller's come from `length_mask`.
+
+    probs_drop/generator: train-time attention-probs dropout; the flash
+    route takes the dropped entries (the tile is drawn again in the backward,
+    never kept), the blocked path a tile of its own geometry.
     """
     if window % 2 != 0:
         raise ValueError("attention window must be even")
     B, H, L, Dh = q.shape
     half = window // 2
+    drop_active = _drop_active(probs_drop, generator)
 
     if use_pallas == "auto":
-        use_pallas = "flash" if q.is_cuda and (bias_fn is not None or scale) else False
+        flash_ok = bias_fn is not None or scale
+        use_pallas = "flash" if flash_attention_active(q) and flash_ok else False
     if use_pallas == "flash":
         from . import flash_attention as FA
 
@@ -163,11 +195,17 @@ def local_attention(q, k, v, window: int, mask=None, bias_fn=None, use_pallas="a
         if bias_fn is None:
             if not scale:
                 raise ValueError("unbiased flash local attention is always scaled")
+            if drop_active:
+                return FA.flash_local_attention_dropped(q, k, v, mask, generator, window,
+                                                        probs_drop)
             return FA.flash_local_attention(q, k, v, mask, window)
         # the bias tile is built at the FLASH block geometry, which differs
         # from the blocked path's whenever window/2 is no multiple of 8
         fblock = FA._flash_geometry(L, half)[0]
         tile = bias_fn(band_offsets(fblock)).contiguous()
+        if drop_active:
+            return FA.flash_local_attention_biased_dropped(q, k, v, mask, tile, generator, window,
+                                                           probs_drop, scale)
         return FA.flash_local_attention_biased(q, k, v, mask, tile, window, scale)
     if use_pallas is True:
         # the fused kernel takes no additive bias and always scales by
@@ -176,13 +214,23 @@ def local_attention(q, k, v, window: int, mask=None, bias_fn=None, use_pallas="a
             raise ValueError("fused local attention does not support bias_fn")
         if not scale:
             raise ValueError("fused local attention always scales by 1/sqrt(Dh)")
+        if drop_active:
+            raise ValueError("fused local attention has no probs dropout")
         from . import flash_attention as FA
 
         return FA.fused_local_attention(q.contiguous(), k.contiguous(), v.contiguous(), window, mask)
 
     block = max(half, 1)
     bias = bias_fn(band_offsets(block)) if bias_fn is not None else None
-    return _blocked_attention(q, k, v, half, block, mask=mask, bias=bias, scale=scale)[0]
+    drop_mask, keep = None, 1.0
+    if drop_active:
+        keep = 1.0 - probs_drop
+        nb = -(-L // block)
+        # the draw of `_drop_probs` over the banded weights [B, H, nb, block, 3*block]
+        drop_mask = (torch.rand(B, H, nb, block, 3 * block, generator=generator, device=q.device)
+                     < keep).to(q.dtype)
+    return _blocked_attention(q, k, v, half, block, mask=mask, bias=bias, scale=scale,
+                              drop_mask=drop_mask, keep=keep)[0]
 
 
 # ---------------------------------------------------------------------------

@@ -1,10 +1,16 @@
-"""LSTM/GRU stacks for inference (counterpart of the JAX package's ops/rnn.py).
+"""LSTM/GRU stacks (counterpart of the JAX package's ops/rnn.py).
 
 One `nn.LSTM`/`nn.GRU(num_layers, bidirectional)` over packed sequences gives
 the semantics the JAX scan reproduces with `reverse_in_length`: the backward
 direction starts at each row's true last step, and padded steps output 0.
 Zero-length rows are packed with length 1 and their outputs masked to 0, as
-JAX masks them.
+JAX masks them; the mask also keeps any gradient from reaching the weights
+through such a row.
+
+Training: cuDNN refuses an RNN backward in eval mode, and the taggers apply
+their dropout outside the stack (the recurrent module's own `dropout` is 0),
+so `forward` puts the recurrent module into train mode whenever a gradient
+is wanted, whatever the mode of the tagger around it.
 
 Parameters keep torch's layout and names (`weight_ih_l{k}[_reverse]`,
 separate `bias_ih`/`bias_hh`); `from_jax_params` maps the JAX per-layer
@@ -50,6 +56,9 @@ class RNNStack(nn.Module):
     def forward(self, x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
         """x [B, L, D], lengths [B] -> [B, L, H * directions], padding zeroed."""
         L = x.shape[1]
+        # train() on the recurrent module changes nothing but cuDNN's choice of
+        # a path that keeps what its backward needs (its dropout is 0)
+        self.rnn.train(torch.is_grad_enabled())
         packed = pack_padded_sequence(x, lengths.cpu().long().clamp_min(1), batch_first=True,
                                       enforce_sorted=False)
         y, _ = pad_packed_sequence(self.rnn(packed)[0], batch_first=True, total_length=L)

@@ -15,7 +15,8 @@ def test_port_modules_import_no_jax():
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
         "assert len(names) > 20, names\n"
         "for new in ('ops.flash_attention', 'ops.attention', 'models.transformers',\n"
-        "            'models.registry'):\n"
+        "            'models.registry', 'ops.losses', 'eval.metrics', 'train.data',\n"
+        "            'train.loop', 'cli.train_fit'):\n"
         "    assert pkg.__name__ + '.' + new in names, new\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
