@@ -9,7 +9,9 @@ Phases (any failure exits non-zero, and no result line is printed):
 
 1. build every CUDA kernel from csrc/ (one nvcc each, started together);
 2. each kernel against its plain PyTorch version on the card, at the shapes
-   the main paths give it, with its time beside its bound, the plain
+   the main paths give it, with its time (the wrapper's host gaps included,
+   as in every earlier run) and its device time beside its float32 bound
+   and, for the flash kernels, the 3xTF32 tensor-core floor, the plain
    version's time and one PyTorch call computing the same function: K1
    (instance norm + GELU), K2 (banded flash attention forward), K6 (fused
    local attention) and the flash backward K4 (dq), K5 (dq + dbias) and K3
@@ -45,12 +47,18 @@ Phases (any failure exits non-zero, and no result line is printed):
 
 The line before the last is a JSON object with one entry per kernel; the last
 line is {"ok": true, "device": {...}}. Working files go to build/chip_smoke/.
+
+`python3 chip_smoke.py --no-key-rows` runs none of the phases above after the
+build: it times K2 as built against a build whose tile product does every
+row that sees no key (`-DMTS_NO_KEY_SHORTCUTS=0`), and prints the times as
+one JSON object.
 """
 from __future__ import annotations
 
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -77,17 +85,23 @@ TRAIN_EPOCHS = 20
 # flash layers per tagger: (K2 forward, K4, K5, K3) launches of one train step without remat
 STEP_LAUNCHES = {"Transformer": (2, 2, 0, 2), "RecurrentLongT5": (2, 0, 2, 2),
                  "BiLSTMRestrictedMHA": (2, 2, 0, 2), "BiLSTM": (0, 0, 0, 0)}
-# H100 SXM data sheet: HBM rate, float32 peak
+# H100 SXM data sheet: HBM rate, float32 peak, TF32 tensor-core peak (dense)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+TF32_FLOP_PER_S = 495e12
+# about 1 ms of a 1.98 GHz clock: longer than a wrapper's host time per call
+SPIN_CYCLES = 2_000_000
 
 
 def log(*a):
     print(*a, flush=True)
 
 
-def time_ms(fn, iters=20, warmup=3):
-    """Median of `iters` CUDA-event timings of fn()."""
+def time_ms(fn, iters=20, warmup=3, spin=False):
+    """Median of `iters` CUDA-event timings of fn(): the wrapper's host time
+    before its launches (checks, allocations) counts as a gap on the card.
+    spin=True gives device time: a spin kernel queued before the first event
+    keeps the card busy while the host queues the events and fn's launches."""
     import torch
 
     for _ in range(warmup):
@@ -96,6 +110,8 @@ def time_ms(fn, iters=20, warmup=3):
     for _ in range(iters):
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
+        if spin:
+            torch.cuda._sleep(SPIN_CYCLES)
         e0.record()
         fn()
         e1.record()
@@ -110,6 +126,29 @@ def bound(bytes_moved, ops):
     float32 operations over the CUDA-core peak."""
     by_bytes, by_ops = bytes_moved / HBM_BYTES_PER_S, ops / FP32_FLOP_PER_S
     return 1e3 * max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
+
+
+def bound_tc(bytes_moved, ops):
+    """The floor of the 3xTF32 route the flash kernels take: bytes over the
+    HBM rate against three TF32 tensor-core operations per float32 one."""
+    return 1e3 * max(bytes_moved / HBM_BYTES_PER_S, 3 * ops / TF32_FLOP_PER_S)
+
+
+def ptxas_summary(nvcc_log):
+    """-> ["kernel<NC>: N registers, S bytes spilled", ...] from `-Xptxas -v`."""
+    out, name, spill = [], "?", ""
+    for ln in nvcc_log.splitlines():
+        m = re.search(r"Function properties for (\S+)", ln)
+        if m:
+            k = re.search(r"\d([a-z]\w*?_kernel)(?:ILi(\d+)E)?", m.group(1))
+            name = (k.group(1) + (f"<{k.group(2)}>" if k.group(2) else "")) if k else m.group(1)
+        m = re.search(r"(\d+) bytes spill stores", ln)
+        if m:
+            spill = m.group(1)
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out.append(f"{name}: {m.group(1)} registers, {spill or 0} bytes spilled")
+    return out
 
 
 def check_instance_norm_gelu(dev):
@@ -144,6 +183,7 @@ def check_instance_norm_gelu(dev):
     # the main path's rows are whole 1-second units
     full = torch.full((B,), T, device=dev, dtype=torch.int32)
     ms = time_ms(lambda: K.instance_norm_gelu(x, scale, bias, full))
+    device_ms = time_ms(lambda: K.instance_norm_gelu(x, scale, bias, full), spin=True)
     plain_ms = time_ms(lambda: K.instance_norm_gelu_reference(x, scale, bias, full))
     library_ms = time_ms(lambda: F.gelu(F.group_norm(x, C, scale, bias, 1e-5)))
     n = B * C * T
@@ -153,8 +193,8 @@ def check_instance_norm_gelu(dev):
     ops = 10 * n
     bound_ms, bound_by = bound(bytes_moved, ops)
     log(f"[K1 instance_norm_gelu] [{B}, {C}, {T}] f32: max_abs_err {err:.3e} (atol/rtol 1e-4); "
-        f"kernel {ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), plain {plain_ms:.4f} ms, "
-        f"F.gelu(F.group_norm) {library_ms:.4f} ms")
+        f"kernel {ms:.4f} ms ({device_ms:.4f} ms device time), bound {bound_ms:.4f} ms "
+        f"({bound_by}), plain {plain_ms:.4f} ms, F.gelu(F.group_norm) {library_ms:.4f} ms")
     return {
         "name": "instance_norm_gelu",
         "route": "cuda",
@@ -162,6 +202,7 @@ def check_instance_norm_gelu(dev):
         "replaces": "multimodaltopicsegmentation_tpu/ops/pallas_norm.py:91",
         "max_abs_err": err,
         "ms": ms,
+        "device_ms": device_ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
@@ -185,6 +226,30 @@ def banded_work(lengths, L, half, block, H, Dh):
         blocks = 0 if first_uniform >= L else -(-L // block) - first_uniform // block
         ops += H * (4 * Dh * pairs + blocks * 3 * block * Dh)
     return ops
+
+
+def banded_bytes(lengths, L, half, block, H, Dh, lse, bias_numel, dropped):
+    """Bytes the banded attention forward must move for THESE lengths: q of
+    the rows that see a key (below length + half), k and v of the rows below
+    the length, O (and lse) written on every row, the lengths and the bias
+    tile once, one 0/1 entry per (query, valid key) pair and 3*block for each
+    row that sees no key, and the rows of V at or past the length that the
+    three clamped blocks of such rows cover, each once."""
+    import numpy as np
+
+    i = np.arange(L)
+    total = len(lengths) * 4 + bias_numel * 4
+    for n in lengths:
+        seen = 0 if n == 0 else min(n + half, L)  # rows that see a key
+        keys = np.minimum(i + half, n - 1) - np.maximum(i - half, 0) + 1
+        pairs = int(np.clip(keys, 0, None).sum())
+        # the first V row of the clamped blocks around the first row that sees no key
+        first_v = L if seen >= L else max(seen // block - 1, 0) * block
+        total += H * 4 * (seen * Dh + 2 * n * Dh + L * Dh + (L if lse else 0)
+                          + max(0, L - max(n, first_v)) * Dh)
+        if dropped:
+            total += H * 4 * (pairs + (L - seen) * 3 * block)
+    return total
 
 
 def sdpa_mask(lengths, L, half, dev, bias=None, block=None):
@@ -267,20 +332,24 @@ def check_flash_attention(dev):
             library_ms = time_ms(sdpa, iters=5, warmup=2)
             del am
         ms = time_ms(run)
+        device_ms = time_ms(run, spin=True)
         plain_ms = time_ms(plain, iters=5, warmup=2)
-        n = B * H * L
-        bytes_moved = (4 * n * Dh * 4 + B * 4 + (n * 4 if kernel == "K2" else 0)
-                       + (bias.numel() * 4 if biased else 0) + (drop.numel() * 4 if dropped else 0))
+        bytes_moved = banded_bytes(lengths, L, half, block, H, Dh, kernel == "K2",
+                                   bias.numel() if biased else 0, dropped)
         ops = banded_work(lengths, L, half, block, H, Dh)
         bound_ms, bound_by = bound(bytes_moved, ops)
+        tc_ms = bound_tc(bytes_moved, ops)
         lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
         log(f"[{label}] [{B}, {H}, {L}, {Dh}] f32 window {window}: max_abs_err {err:.3e} "
-            f"(atol/rtol 1e-4, O{'' if lse is None else ' and lse'}); kernel {ms:.4f} ms, bound "
+            f"(atol/rtol 1e-4, O{'' if lse is None else ' and lse'}); kernel {ms:.4f} ms "
+            f"({device_ms:.4f} ms device time), bound "
             f"{bound_ms:.4f} ms ({bound_by}: {ops / 1e9:.2f} GFLOP, {bytes_moved / 1e6:.0f} MB), "
-            f"plain {plain_ms:.4f} ms, scaled_dot_product_attention {lib}")
+            f"3xTF32 floor {tc_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"scaled_dot_product_attention {lib}")
         rows.append({"kernel": kernel, "label": label, "shape": [B, H, L, Dh], "window": window,
-                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                     "bound_by": bound_by, "library_ms": library_ms})
+                     "max_abs_err": err, "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by, "bound_tc_ms": tc_ms,
+                     "library_ms": library_ms})
         del q, k, v, out, want_out
 
     def entry(name, kernel, replaces):
@@ -289,8 +358,9 @@ def check_flash_attention(dev):
         return {
             "name": name, "route": "cuda", "source": FLASH_SOURCE, "replaces": replaces,
             "max_abs_err": max(r["max_abs_err"] for r in mine),
-            "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
-            "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+            "ms": head["ms"], "device_ms": head["device_ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "bound_tc_ms": head["bound_tc_ms"], "library_ms": head["library_ms"],
             "shapes": [{k: r[k] for k in r if k != "kernel"} for r in mine],
         }
 
@@ -302,6 +372,66 @@ def check_flash_attention(dev):
             "fused_local_attention", "K6",
             "multimodaltopicsegmentation_tpu/ops/pallas_attention.py:104"),
     }
+
+
+def no_key_rows_ab(dev):
+    """`--no-key-rows`: K2 as built against a build with -DMTS_NO_KEY_SHORTCUTS=0,
+    where the tile product does every row that sees no key (no column sums of
+    V, no whole tiles written kGroup to a block), at the long-document shapes
+    that take the shortcuts. Each build is held against the plain version,
+    then timed in the order as built, tile product, tile product, as built.
+    -> {shape label: {build: [(ms, device_ms), (ms, device_ms)]}}"""
+    import ctypes
+
+    import torch
+
+    from multimodaltopicsegmentation_torch.core import cuda_build
+    from multimodaltopicsegmentation_torch.ops import flash_attention as FA
+
+    lib_path = os.path.join(WORK, f"{FA.KERNEL}_tile_product_only.so")
+    nvcc = subprocess.run([cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-DMTS_NO_KEY_SHORTCUTS=0",
+                           "-o", lib_path, str(cuda_build.CSRC / f"{FA.KERNEL}.cu")],
+                          capture_output=True, text=True, timeout=600)
+    if nvcc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for the tile-product build:\n{nvcc.stdout}{nvcc.stderr}")
+    log(f"[build] {FA.KERNEL} -DMTS_NO_KEY_SHORTCUTS=0: "
+        f"{'; '.join(ptxas_summary(nvcc.stdout + nvcc.stderr))}")
+    builds = {"as built": cuda_build.load(FA.KERNEL), "tile product": ctypes.CDLL(lib_path)}
+    H = 8
+    cases = [  # (label, L, Dh, window, biased, scale): check_flash_attention's K2 shapes
+        ("Transformer layer 0", 3600, 96, 240, False, True),
+        ("Transformer layer 1", 3600, 96, 120, False, True),
+        ("RecurrentLongT5, biased, unscaled", 3600, 64, 240, True, False),
+        ("RecurrentLongformer", 3600, 32, 120, False, True),
+    ]
+    out = {}
+    try:
+        for label, L, Dh, window, biased, scale in cases:
+            B = len(CHECK_LENGTHS)
+            g = torch.Generator(device=dev).manual_seed(0)
+            q, k, v = (torch.randn(B, H, L, Dh, device=dev, generator=g) for _ in range(3))
+            mask = (torch.arange(L, device=dev)[None, :]
+                    < torch.tensor(CHECK_LENGTHS, device=dev)[:, None]).float()
+            block = FA._flash_geometry(L, window // 2)[0]
+            bias = 0.1 * torch.randn(H, block, 3 * block, device=dev, generator=g) if biased else None
+            want_out, want_lse = FA.flash_local_attention_reference(q, k, v, mask, window, bias,
+                                                                    scale)
+            run = lambda: FA._flash_fwd(q, k, v, mask, window, bias, scale)  # noqa: E731
+            times = {name: [] for name in builds}
+            for name in ("as built", "tile product", "tile product", "as built"):
+                cuda_build._loaded[FA.KERNEL] = builds[name]
+                got_out, got_lse = run()
+                torch.testing.assert_close(got_out, want_out, atol=1e-4, rtol=1e-4)
+                torch.testing.assert_close(got_lse, want_lse, atol=1e-4, rtol=1e-4)
+                times[name].append((time_ms(run), time_ms(run, spin=True)))
+            text = "; ".join(f"{name} " + ", ".join(f"{ms:.4f} ({dms:.4f} device)" for ms, dms in t)
+                             for name, t in times.items())
+            log(f"[no-key rows] K2 {label} [{B}, {H}, {L}, {Dh}] window {window}: ms {text}")
+            out[label] = times
+            del q, k, v, want_out, want_lse, got_out, got_lse
+    finally:
+        cuda_build._loaded[FA.KERNEL] = builds["as built"]
+    return out
 
 
 def write_wavs(audio_dir, seconds, seed):
@@ -707,21 +837,26 @@ def check_flash_backward(dev):
                 ("K5" if biased else "K4", run_dq, plain_dq, 1, 6, ("dq", "dbias")),
                 ("K3", run_dkv, plain_dkv, 2, 8, ("dk", "dv"))):
             ms = time_ms(run)
+            device_ms = time_ms(run, spin=True)
             plain_ms = time_ms(plain, iters=5, warmup=2)
             # the gradients are written on every row (zeros past the length), dbias once
             bytes_moved = reads + grads * n * Dh * 4 + (bias.numel() * 4 if kernel == "K5" else 0)
             ops = flop * Dh * pairs
             bound_ms, bound_by = bound(bytes_moved, ops)
+            tc_ms = bound_tc(bytes_moved, ops)
             err = max(errs[key] for key in err_keys if key in errs)
             lib_txt = "none" if library_ms is None else f"{library_ms:.4f} ms (dq, dk and dv in one call)"
             log(f"[{kernel} {label}] [{B}, {H}, {L}, {Dh}] f32 window {window}: max_abs_err "
                 f"{err:.3e} (atol/rtol 1e-4, {' and '.join(k for k in err_keys if k in errs)}); "
-                f"kernel {ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: {ops / 1e9:.2f} GFLOP, "
-                f"{bytes_moved / 1e6:.0f} MB), plain {plain_ms:.4f} ms, autograd through "
-                f"scaled_dot_product_attention {lib_txt}")
+                f"kernel {ms:.4f} ms ({device_ms:.4f} ms device time), "
+                f"bound {bound_ms:.4f} ms ({bound_by}: {ops / 1e9:.2f} GFLOP, "
+                f"{bytes_moved / 1e6:.0f} MB), 3xTF32 floor {tc_ms:.4f} ms, "
+                f"plain {plain_ms:.4f} ms, "
+                f"autograd through scaled_dot_product_attention {lib_txt}")
             rows.append({"kernel": kernel, "label": label, "shape": [B, H, L, Dh], "window": window,
-                         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                         "bound_by": bound_by, "library_ms": library_ms})
+                         "max_abs_err": err, "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+                         "bound_ms": bound_ms, "bound_by": bound_by, "bound_tc_ms": tc_ms,
+                         "library_ms": library_ms})
         del q, k, v, do, out, dq, dk, dv
 
     def entry(name, kernel, line):
@@ -731,8 +866,9 @@ def check_flash_backward(dev):
             "name": name, "route": "cuda", "source": FLASH_BWD_SOURCE,
             "replaces": f"{PALLAS}:{line}",
             "max_abs_err": max(r["max_abs_err"] for r in mine),
-            "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
-            "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+            "ms": head["ms"], "device_ms": head["device_ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "bound_tc_ms": head["bound_tc_ms"], "library_ms": head["library_ms"],
             "shapes": [{k: r[k] for k in r if k != "kernel"} for r in mine],
         }
 
@@ -1109,8 +1245,10 @@ def main() -> int:
 
     t0 = time.perf_counter()
     for name, (secs, nvcc_log) in cuda_build.build_all().items():
-        regs = [ln.strip() for ln in nvcc_log.splitlines() if "registers" in ln]
-        log(f"[build] {name}: {secs:.2f} s; {'; '.join(regs)}")
+        log(f"[build] {name}: {secs:.2f} s; {'; '.join(ptxas_summary(nvcc_log))}")
+    if sys.argv[1:] == ["--no-key-rows"]:
+        log(json.dumps({"no_key_rows": no_key_rows_ab(dev)}))
+        return 0
     kernels = {"instance_norm_gelu": k1.instance_norm_gelu}
 
     t = time.perf_counter()

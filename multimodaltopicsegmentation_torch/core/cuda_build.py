@@ -3,9 +3,9 @@
 Each `csrc/<name>.cu` exposes a plain C interface and is compiled by `nvcc`
 for Hopper (`sm_90a`) into its own shared library under `build/torch_kernels/`
 at the repository root (listed in .gitignore). The file name carries a hash
-of the source and the flags, so an edited source builds anew and an
-unchanged one is loaded as it is. Nothing is built when a module is
-imported: `load` runs inside the wrappers that launch a kernel, and
+of the source, the `csrc/*.cuh` headers and the flags, so an edited source
+builds anew and an unchanged one is loaded as it is. Nothing is built when a
+module is imported: `load` runs inside the wrappers that launch a kernel, and
 `build_all` lets a caller start every build at once, one `nvcc` per source.
 """
 from __future__ import annotations
@@ -45,8 +45,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):  # the headers a source may include
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 

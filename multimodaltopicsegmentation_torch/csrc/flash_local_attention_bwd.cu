@@ -22,43 +22,59 @@
 // i and key p. The masks are on positions, so a clamped edge block of the TPU
 // grid needs no special case.
 //
-// Bound: operations. At [10, 8, 3600, 96], window 240, all rows full, K4/K5 do
-// three banded products (6*Dh flop per pair: 40 GFLOP, 0.6 ms at the H100's
-// 67 TFLOP/s float32 rate) and K3 four (8*Dh: 53 GFLOP, 0.8 ms), against some
-// 0.9 GB of q, k, v, dO and the gradients (0.27 ms at 3.35 TB/s). The
-// arithmetic is float32 on the CUDA cores, as in the forward kernel.
+// Bound: operations. At [8, 8, 3600, 96], window 240, ragged lengths (26 M
+// (query, key) pairs that carry a gradient), K4/K5 do three banded products
+// (6*Dh operations per pair, 15.1 GFLOP) and K3 four (8*Dh: 20.2 GFLOP). In
+// float32 on the CUDA cores (67 TFLOP/s) that is 0.23 and 0.30 ms; in three
+// TF32 passes on the tensor cores (495 TFLOP/s) 0.09 and 0.12 ms, just above
+// the 0.08 and 0.10 ms that the bytes these lengths need (q, k, v, dO, lse,
+// D of the rows below the length, the gradients of every row) take at
+// 3.35 TB/s.
 //
-// Design, both kernels: 256 threads own a 64 x 64 tile of (query, key) pairs
-// at a time, each thread a 4 x 4 micro-tile of s and dP computed in one pass
-// over Dh from shared-memory tiles of Q, dO, K and V (rows padded by 4 floats
-// so the float4 reads do not conflict). dS (and the dropped P) go through
-// shared memory into the second product, whose accumulators stay in
+// K4 and K5 (float32 on the CUDA cores): 256 threads own a 64 x 64 tile of
+// (query, key) pairs at a time, each thread a 4 x 4 micro-tile of s and dP
+// computed in one pass over Dh from shared-memory tiles of Q, dO, K and V
+// (rows padded by 4 floats so the float4 reads do not conflict). dS goes
+// through shared memory into the second product, whose accumulators stay in
 // registers; nothing score-shaped reaches device memory. Only tiles inside
-// the band and below the length are visited.
-//   dq kernel: a block owns 64 query rows and walks their key tiles. K4 runs
-//     one block per (batch row, head, query tile).
-//   K5's dbias has no sequential grid to lean on. One block per (head, query
-//     tile) loops over the batch IN ORDER and adds its dS into a partial
-//     [64, 64 + 2*half] of its own in device memory (column = key - (q0 -
-//     half); plain read-modify-write, no atomics: no other block touches it).
-//     A second kernel then sums, for each (head, row, offset) of the tile,
-//     the partials of the query positions i = row, row + block, ... in order.
-//     The result does not depend on scheduling.
-//   dk/dv kernel: a block owns 64 keys and walks the query tiles that can see
-//     them; each thread accumulates 4 keys x Dh/16 columns of dk and of dv.
-// Left for later tuning: tensor cores, cp.async/TMA staging, sharing the
-// recomputed tiles between the dq and dk/dv passes.
+// the band and below the length are visited. A block owns 64 query rows and
+// walks their key tiles; K4 runs one block per (batch row, head, query tile).
+// K5's dbias has no sequential grid to lean on. One block per (head, query
+// tile) loops over the batch IN ORDER and adds its dS into a partial [64, 64
+// + 2*half] of its own in device memory (column = key - (q0 - half); plain
+// read-modify-write, no atomics: no other block touches it). A second kernel
+// then sums, for each (head, row, offset) of the tile, the partials of the
+// query positions i = row, row + block, ... in order. The result does not
+// depend on scheduling.
+//
+// K3 (redesigned for Hopper's tensor cores; see flash_local_dkv_kernel): all
+// four products in m16n8k8 3xTF32 fragments (tf32x3.cuh), key-major so that
+// P^T and dS^T stay in registers as the A operand of dV and dK; the
+// operands of K Q^T and V dO^T by ldmatrix; every 8-query group of a tile computed
+// (branches per group cost more than the products they skip); the
+// elementwise step branch-free; Q and dO tiles by cp.async, one buffer each,
+// refilled in turn while the other product runs; 103 KB of shared memory at
+// Dh 96, two blocks per SM (the float32 CUDA-core design it replaces held
+// six tiles, 138 KB, one block per SM); the bias and 0/1 entries of a 64 x 64
+// tile are staged by rows with 16-byte copies instead of being read one by
+// one from device memory. Times against both floors are in PERF.md.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "tf32x3.cuh"
+
 namespace {
+
+using mts::FragA;
 
 constexpr int kBQ = 64;        // rows of the tile a block owns
 constexpr int kBK = 64;        // rows of the tiles it walks
-constexpr int kThreads = 256;  // 16 row groups x 16 column lanes
+constexpr int kThreads = 256;  // K4, K5: 16 row groups x 16 column lanes
+constexpr int kThreadsTC = 128;  // K3: 4 warps of 16 keys each
 constexpr int kPS = kBK + 4;   // row stride of the dS / P tiles
 constexpr int kMaxDh = 128;
+constexpr int kPvGroup = 4;  // column tiles per pass of K3's dV and dK products
 
 struct Params {
   const float* q;
@@ -292,25 +308,39 @@ __global__ void flash_local_dbias_reduce_kernel(const float* __restrict__ partia
   dbias[idx] = sum;
 }
 
-// K3. DC = ceil(Dh / 16): dk and dv columns per thread.
-template <int DC>
-__global__ void __launch_bounds__(kThreads)
+// K3 on the tensor cores. NC: 8-column chunks of the head dim this
+// instantiation holds (4, 8, 12 or 16). A block of 4 warps owns 64 keys, each
+// warp 16, and walks the 64-query tiles (aligned to 64) that see them. Per
+// tile, in key-major orientation so that P^T and dS^T come out as A rows:
+//   dP^T = V dO^T and S^T = K Q^T (3xTF32 fragments in registers);
+//   P = exp(scale * S + bias - lse), dS = P * (dP M / keep - D), P M / keep;
+//   dV += (P M / keep)^T dO and dK += dS^T Q, the C fragments of P^T and dS^T
+//   reused as A fragments.
+// K and V of the block's keys stay in shared memory; dO and Q (with lse, D
+// and the staged bias / 0/1 entries) have one buffer each, refilled by
+// cp.async in turn: dO of tile t + 1 loads while dK of tile t runs, Q of
+// tile t + 1 while dP^T of tile t + 1 runs. 103 KB at Dh 96: two blocks per SM.
+// The products run over 8 * NC columns of the head dim (zeros past Dh).
+template <int NC>
+__global__ void __launch_bounds__(kThreadsTC)
 flash_local_dkv_kernel(const Params p) {
   extern __shared__ __align__(16) float smem[];
   const int Dh = p.Dh;
-  const int DS = Dh + 4;
+  const int DS = mts::tile_stride(Dh);
   float* Ks = smem;
   float* Vs = Ks + kBQ * DS;
   float* Qs = Vs + kBQ * DS;
-  float* Os = Qs + kBK * DS;   // dO
-  float* Ps = Os + kBK * DS;   // P M / keep, [query][key]
-  float* Ss = Ps + kBK * kPS;  // dS, [query][key]
-  float* lse_s = Ss + kBK * kPS;
+  float* Os = Qs + kBK * DS;  // dO
+  float* lse_s = Os + kBK * DS;
   float* dd_s = lse_s + kBK;
+  float* Bs = dd_s + kBK;                                 // bias entries [query][key]
+  float* Ms = Bs + (p.bias != nullptr ? kBK * mts::kTS : 0);  // 0/1 entries [query][key]
 
   const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
   const int bh = blockIdx.x / p.tiles;
   const int k0 = (blockIdx.x - bh * p.tiles) * kBQ;
   const int h = bh % p.H;
@@ -321,110 +351,160 @@ flash_local_dkv_kernel(const Params p) {
   const int length = min(max(p.lengths[bh / p.H], 0), L);
   const int kend = min(k0 + kBQ, L);
   const int khi = min(kend, length);  // first key of the tile that is masked
+  const int wk = 16 * warp;           // this warp's first key in the tile
+  const int kw = k0 + wk;
   const size_t base = static_cast<size_t>(bh) * L * Dh;
+  const float* qb = p.q + base;
+  const float* ob = p.dout + base;
+  const float* bias_h = p.bias != nullptr ? p.bias + static_cast<size_t>(h) * block * three : nullptr;
+  const float* drop_bh =
+      p.drop != nullptr ? p.drop + static_cast<size_t>(bh) * p.nb * block * three : nullptr;
+  const float inv_keep = 1.f / p.keep;
 
-  bool colok[DC];
+  float dk[NC][4], dv[NC][4];  // rows: keys g, g + 8 of the warp; columns 8c + 2t, + 1
 #pragma unroll
-  for (int c = 0; c < DC; ++c) colok[c] = tx + 16 * c < Dh;
-
-  float acck[4][DC], accv[4][DC];
+  for (int c = 0; c < NC; ++c)
 #pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < DC; ++c) {
-      acck[r][c] = 0.f;
-      accv[r][c] = 0.f;
+    for (int e = 0; e < 4; ++e) {
+      dk[c][e] = 0.f;
+      dv[c][e] = 0.f;
     }
 
-  if (k0 < khi) {
-    load_tile(Ks, p.k + base, k0, khi, Dh, DS, tid);
-    load_tile(Vs, p.v + base, k0, khi, Dh, DS, tid);
-    // the queries that see these keys: within half, and below the length
-    const int qlo = max(0, k0 - half);
-    const int qhi = min(khi - 1 + half, length - 1);
-    for (int q0 = qlo; q0 <= qhi; q0 += kBK) {
-      load_tile(Qs, p.q + base, q0, qhi + 1, Dh, DS, tid);
-      load_tile(Os, p.dout + base, q0, qhi + 1, Dh, DS, tid);
-      if (tid < kBK) {
-        const bool in = q0 + tid <= qhi;
-        lse_s[tid] = in ? p.lse[static_cast<size_t>(bh) * L + q0 + tid] : 0.f;
-        dd_s[tid] = in ? p.dd[static_cast<size_t>(bh) * L + q0 + tid] : 0.f;
-      }
-      __syncthreads();
+  mts::zero_pad_columns<kThreadsTC, NC>(smem, 2 * kBQ + 2 * kBK, DS, Dh, tid);
 
-      float s[4][4], dp[4][4];  // rows: queries ty*4+r; columns: keys tx+16c
-      two_products(Qs, Ks, Os, Vs, Dh, DS, tx, ty, s, dp);
+  // the queries that see these keys: within half, and below the length
+  const int qlo = max(0, k0 - half) & ~(kBK - 1);
+  const int qhi = k0 < khi ? min(khi - 1 + half, length - 1) : -1;  // the last one
 
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int row = ty * 4 + r;
-        const int qpos = q0 + row;
-        const int jq = qpos / block;
-        const int qr = qpos - jq * block;
-        const float lse = lse_s[row];
-        const float dd = dd_s[row];
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int kpos = k0 + tx + 16 * c;
-          const bool ok = qpos <= qhi && kpos < khi && abs(kpos - qpos) <= half;
-          float pd = 0.f, ds = 0.f;
-          if (ok) {
-            const int col = kpos - jq * block + block;
-            float sv = p.scale * s[r][c];
-            if (p.bias != nullptr) sv += p.bias[(static_cast<size_t>(h) * block + qr) * three + col];
-            const float pv = expf(sv - lse);
-            float dpv = dp[r][c];
-            pd = pv;
-            if (p.drop != nullptr) {
-              const float m = p.drop[(static_cast<size_t>(bh) * p.nb * block + qpos) * three + col];
-              pd = pv * m / p.keep;
-              dpv = dpv * m / p.keep;
-            }
-            ds = pv * (dpv - dd);
-          }
-          Ps[row * kPS + tx + 16 * c] = pd;
-          Ss[row * kPS + tx + 16 * c] = ds;
-        }
-      }
-      __syncthreads();
-
-      // this thread now owns keys ty*4 .. ty*4+3 and columns tx + 16c
-      for (int qq = 0; qq < kBK; ++qq) {
-        const float4 pr = *reinterpret_cast<const float4*>(Ps + qq * kPS + ty * 4);
-        const float4 sr = *reinterpret_cast<const float4*>(Ss + qq * kPS + ty * 4);
-        float ov[DC], qv[DC];
-#pragma unroll
-        for (int c = 0; c < DC; ++c) {
-          ov[c] = colok[c] ? Os[qq * DS + tx + 16 * c] : 0.f;
-          qv[c] = colok[c] ? Qs[qq * DS + tx + 16 * c] : 0.f;
-        }
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const float pu = at(pr, r);
-          const float su = at(sr, r);
-#pragma unroll
-          for (int c = 0; c < DC; ++c) {
-            accv[r][c] += pu * ov[c];
-            acck[r][c] += su * qv[c];
-          }
-        }
-      }
-      __syncthreads();
+  // Q, lse, D and the staged entries of query tile q0
+  auto stage_q = [&](int q0) {
+    mts::stage_rows<kThreadsTC, kBK, NC>(Qs, DS, qb, q0, qhi + 1, Dh, tid);
+    if (tid < 2 * kBK) {
+      const int r = tid & (kBK - 1);
+      const bool in = q0 + r <= qhi;
+      const float* src = (tid < kBK ? p.lse : p.dd) + static_cast<size_t>(bh) * L;
+      mts::cp_async4((tid < kBK ? lse_s : dd_s) + r, in ? src + q0 + r : src, in);
     }
+    if (bias_h != nullptr)
+      mts::stage_tile<kThreadsTC, kBK>(Bs, bias_h, true, q0, k0, false, L, block, tid);
+    if (drop_bh != nullptr)
+      mts::stage_tile<kThreadsTC, kBK>(Ms, drop_bh, false, q0, k0, false, L, block, tid);
+  };
+
+  if (qlo <= qhi) {
+    mts::stage_rows<kThreadsTC, kBQ, NC>(Ks, DS, p.k + base, k0, khi, Dh, tid);
+    mts::stage_rows<kThreadsTC, kBQ, NC>(Vs, DS, p.v + base, k0, khi, Dh, tid);
+    mts::stage_rows<kThreadsTC, kBK, NC>(Os, DS, ob, qlo, qhi + 1, Dh, tid);
+    mts::cp_async_commit();
+    stage_q(qlo);
+    mts::cp_async_commit();
   }
 
+  for (int q0 = qlo; q0 <= qhi; q0 += kBK) {
+    const bool next = q0 + kBK <= qhi;
+    // does any key of this warp meet a query of the tile?
+    const bool active = kw < khi && q0 <= kw + 15 + half && q0 + kBK - 1 >= kw - half;
+    float s[8][4], dp[8][4];  // C layout: rows keys g, g + 8; columns queries 8n + 2t, + 1
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[n][e] = 0.f;
+        dp[n][e] = 0.f;
+      }
+
+    mts::cp_async_wait<1>();  // K, V and this tile's dO
+    __syncthreads();
+    if (active) {
+#pragma unroll
+      for (int kc = 0; kc < NC; ++kc) {
+        FragA a;
+        mts::load_a(a, Vs, DS, wk, 8 * kc, lane);
+        mts::mma3_xyt(dp, a, Os, DS, 8 * kc, lane);
+      }
+    }
+    mts::cp_async_wait<0>();  // this tile's Q, lse, D and staged entries
+    __syncthreads();
+    if (active) {
+#pragma unroll
+      for (int kc = 0; kc < NC; ++kc) {
+        FragA a;
+        mts::load_a(a, Ks, DS, wk, 8 * kc, lane);
+        mts::mma3_xyt(s, a, Qs, DS, 8 * kc, lane);
+      }
+      // all pairs of the warp's 16 x 64 sub-tile inside the band and below the length
+      const bool full = kw + 15 < khi && q0 + kBK - 1 <= qhi && q0 + kBK - 1 - kw <= half &&
+                        kw + 15 - q0 <= half;
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int lq = 8 * n + 2 * t + e;
+          const int qpos = q0 + lq;
+          const float lse_q = lse_s[lq];
+          const float dd_q = dd_s[lq];
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const int lk = wk + g + 8 * i;
+            const int kpos = k0 + lk;
+            const bool ok = full || (kpos < khi && qpos <= qhi && abs(kpos - qpos) <= half);
+            float sv = p.scale * s[n][2 * i + e];
+            if (bias_h != nullptr) sv += Bs[lq * mts::kTS + lk];
+            const float pv = __expf(sv - lse_q);
+            float dpv = dp[n][2 * i + e];
+            float pd = pv;
+            if (drop_bh != nullptr) {
+              const float mk = Ms[lq * mts::kTS + lk] * inv_keep;
+              pd = pv * mk;
+              dpv = dpv * mk;
+            }
+            // masked pairs give zeros whatever pv is (rows past the length read lse 0)
+            s[n][2 * i + e] = ok ? pd : 0.f;
+            dp[n][2 * i + e] = ok ? pv * (dpv - dd_q) : 0.f;
+          }
+        }
+      // dV += (P M / keep)^T dO over the tile's 64 queries, 8 at a time
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        FragA a;
+        mts::a_from_c(a, s[kk]);
+        mts::mma3_pv<kPvGroup, NC>(dv, a, Os, DS, 8 * kk, g, t);
+      }
+    }
+    __syncthreads();  // every warp is done with dO
+    if (next) mts::stage_rows<kThreadsTC, kBK, NC>(Os, DS, ob, q0 + kBK, qhi + 1, Dh, tid);
+    mts::cp_async_commit();
+    if (active) {
+      // dK += dS^T Q (scaled on the way out)
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        FragA a;
+        mts::a_from_c(a, dp[kk]);
+        mts::mma3_pv<kPvGroup, NC>(dk, a, Qs, DS, 8 * kk, g, t);
+      }
+    }
+    __syncthreads();  // every warp is done with Q, lse, D and the staged entries
+    if (next) stage_q(q0 + kBK);
+    mts::cp_async_commit();
+  }
+
+  // keys past the length get zeros
   float* dkb = p.dk + base;
   float* dvb = p.dv + base;
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int kpos = k0 + ty * 4 + r;
+  for (int i = 0; i < 2; ++i) {
+    const int kpos = kw + g + 8 * i;
     if (kpos < L) {
 #pragma unroll
-      for (int c = 0; c < DC; ++c)
-        if (colok[c]) {
-          dkb[static_cast<size_t>(kpos) * Dh + tx + 16 * c] = p.scale * acck[r][c];
-          dvb[static_cast<size_t>(kpos) * Dh + tx + 16 * c] = accv[r][c];
+      for (int c = 0; c < NC; ++c) {
+        const int col = 8 * c + 2 * t;
+        if (col < Dh) {
+          const size_t at = static_cast<size_t>(kpos) * Dh + col;
+          *reinterpret_cast<float2*>(dkb + at) =
+              make_float2(p.scale * dk[c][2 * i], p.scale * dk[c][2 * i + 1]);
+          *reinterpret_cast<float2*>(dvb + at) = make_float2(dv[c][2 * i], dv[c][2 * i + 1]);
         }
+      }
     }
   }
 }
@@ -434,9 +514,10 @@ size_t dq_smem(int Dh) {
           2 * kBQ) * sizeof(float);
 }
 
-size_t dkv_smem(int Dh) {
-  return (static_cast<size_t>(2 * kBQ + 2 * kBK) * (Dh + 4) + static_cast<size_t>(2 * kBK) * kPS +
-          2 * kBK) * sizeof(float);
+size_t dkv_smem(const Params& p) {
+  return (static_cast<size_t>(2 * kBQ + 2 * kBK) * mts::tile_stride(p.Dh) + 2 * kBK +
+          (p.bias != nullptr ? kBK * mts::kTS : 0) + (p.drop != nullptr ? kBK * mts::kTS : 0)) *
+         sizeof(float);
 }
 
 template <int DC>
@@ -452,16 +533,16 @@ int launch_dq(const Params& p, unsigned blocks, cudaStream_t s) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int DC>
+template <int NC>
 int launch_dkv(const Params& p, unsigned blocks, cudaStream_t s) {
-  const size_t bytes = dkv_smem(p.Dh);
+  const size_t bytes = dkv_smem(p);
   if (bytes > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(flash_local_dkv_kernel<DC>,
+    const cudaError_t err = cudaFuncSetAttribute(flash_local_dkv_kernel<NC>,
                                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                  static_cast<int>(bytes));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  flash_local_dkv_kernel<DC><<<blocks, kThreads, bytes, s>>>(p);
+  flash_local_dkv_kernel<NC><<<blocks, kThreadsTC, bytes, s>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -497,12 +578,18 @@ int run_dq(Params p, void* stream) {
 }
 
 int run_dkv(Params p, void* stream) {
-  if (!prepare(p)) return static_cast<int>(cudaErrorInvalidValue);
+  // the staged bias / 0/1 entries are copied 16 bytes at a time
+  if (!prepare(p) || p.block % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
   const long long blocks = static_cast<long long>(p.B) * p.H * p.tiles;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const unsigned n = static_cast<unsigned>(blocks);
-  MTS_DISPATCH_DC(launch_dkv, p, n, s)
+  switch ((p.Dh + 31) / 32) {
+    case 1: return launch_dkv<4>(p, n, s);
+    case 2: return launch_dkv<8>(p, n, s);
+    case 3: return launch_dkv<12>(p, n, s);
+    default: return launch_dkv<16>(p, n, s);
+  }
 }
 
 Params make_params(const float* q, const float* k, const float* v, const float* dout,

@@ -236,16 +236,24 @@ def _card_inputs(dev, B, H, L, Dh, lengths, seed=0):
     return q, k, v, mask, g
 
 
+# (L, Dh, window, all rows of length 0): head dims that are no multiple of 8
+# (4, 12) or 16, L at and past the 64-row tile edge (64, 65, 130), windows 0
+# and 2, half 60 under a block of 64 (window 120)
+CARD_SHAPES = [(37, 8, 8, False), (200, 24, 120, False), (300, 128, 240, False),
+               (65, 4, 2, False), (130, 12, 0, False), (64, 32, 120, False), (200, 32, 120, True)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("variant", ["unbiased", "biased_unscaled", "large_bias", "dropped"])
-@pytest.mark.parametrize("L,Dh,window", [(37, 8, 8), (200, 24, 120), (300, 128, 240)])
-def test_flash_kernel_matches_plain_on_card(cuda_device, variant, L, Dh, window):
+@pytest.mark.parametrize("L,Dh,window,empty", CARD_SHAPES)
+def test_flash_kernel_matches_plain_on_card(cuda_device, variant, L, Dh, window, empty):
     """K2 against its plain version: rows of a few units, a zero-length row, a
     head dim that is no multiple of 16, L no multiple of the block. A bias
     of magnitude above 32 survives next to NEG_INF in float32, so padded rows
     then weigh their columns unequally."""
     B, H = 4, 2
-    q, k, v, mask, g = _card_inputs(cuda_device, B, H, L, Dh, [L, 0, 3, L // 2])
+    lengths = [0] * B if empty else [L, 0, 3, L // 2]
+    q, k, v, mask, g = _card_inputs(cuda_device, B, H, L, Dh, lengths)
     block, nb, _ = FA._flash_geometry(L, window // 2)
     kw = {}
     if variant in ("biased_unscaled", "large_bias"):
@@ -265,9 +273,10 @@ def test_flash_kernel_matches_plain_on_card(cuda_device, variant, L, Dh, window)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("L,Dh,window", [(37, 8, 8), (200, 24, 120), (300, 128, 240)])
-def test_fused_kernel_matches_plain_on_card(cuda_device, L, Dh, window):
-    q, k, v, mask, _ = _card_inputs(cuda_device, 4, 2, L, Dh, [L, 0, 3, L // 2], seed=1)
+@pytest.mark.parametrize("L,Dh,window,empty", CARD_SHAPES)
+def test_fused_kernel_matches_plain_on_card(cuda_device, L, Dh, window, empty):
+    lengths = [0] * 4 if empty else [L, 0, 3, L // 2]
+    q, k, v, mask, _ = _card_inputs(cuda_device, 4, 2, L, Dh, lengths, seed=1)
     before = FA.fused_local_attention.launches
     out = TA.local_attention(q, k, v, window, mask, use_pallas=True)
     torch.cuda.synchronize()

@@ -323,9 +323,13 @@ def test_dropped_entry_backward_redraws_the_forward_tile(biased):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("window,L,Dh", [(8, 37, 8), (120, 200, 32), (240, 700, 96), (16, 130, 64)])
+@pytest.mark.parametrize("window,L,Dh,empty", [
+    (8, 37, 8, False), (120, 200, 32, False), (240, 700, 96, False), (16, 130, 64, False),
+    # head dims no multiple of 8, L at and past the 64-row tile edge, windows 2 and 0,
+    # half 60 under a block of 64, a batch whose rows are all of length 0
+    (2, 65, 4, False), (0, 130, 12, False), (120, 64, 32, False), (120, 200, 32, True)])
 @pytest.mark.parametrize("biased,scale,dropped", VARIANTS)
-def test_cuda_backward_kernels_match_plain(window, L, Dh, biased, scale, dropped):
+def test_cuda_backward_kernels_match_plain(window, L, Dh, empty, biased, scale, dropped):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     dev = torch.device("cuda")
@@ -337,7 +341,7 @@ def test_cuda_backward_kernels_match_plain(window, L, Dh, biased, scale, dropped
         # unit-variance q and k make an unscaled softmax one-hot, with gradients
         # in the tens, where 1e-4 absolute is an ulp; projections are of this size
         q, k = 0.5 * q, 0.5 * k
-    lengths = torch.tensor([L, max(L - 5, 1), 0], device=dev)
+    lengths = torch.tensor([0, 0, 0] if empty else [L, max(L - 5, 1), 0], device=dev)
     mask = (torch.arange(L, device=dev)[None, :] < lengths[:, None]).float()
     block, nb, _ = FA._flash_geometry(L, window // 2)
     bias = (0.3 * torch.randn(H, block, 3 * block, device=dev)) if biased else None
