@@ -14,9 +14,9 @@ Phases (any failure exits non-zero, and no result line is printed):
    and, for the flash kernels, the 3xTF32 tensor-core floor, the plain
    version's time and one PyTorch call computing the same function: K1
    (instance norm + GELU), K2 (banded flash attention forward), K6 (fused
-   local attention) and the flash backward K4 (dq), K5 (dq + dbias) and K3
-   (dk, dv); then the four differentiable flash entries' gradients against
-   the plain path's;
+   local attention) and the flash backward K4 (dq), K5 (dq + dbias; two
+   calls must give the same bits) and K3 (dk, dv); then the four
+   differentiable flash entries' gradients against the plain path's;
 3. the audio path end to end: synthetic wavs, a random-weight BiLSTM
    checkpoint (embedding 768, h 256, 2 layers, FocalLoss) and the predict
    CLI with -ee on cuda under MTS_RANDOM_ENCODER_WEIGHTS=1 (random
@@ -749,8 +749,9 @@ def banded_pairs(lengths, L, half):
 def check_flash_backward(dev):
     """K4, K5 and K3 against their plain versions at the training path's
     shapes: whole tensors, ragged lengths with a zero-length row, a non-zero
-    cotangent on padded rows; and their times beside the bound, the plain
-    version and autograd through scaled_dot_product_attention."""
+    cotangent on padded rows, K5 twice with the same bits; and their times
+    beside the bound, the plain version and autograd through
+    scaled_dot_product_attention."""
     import torch
     import torch.nn.functional as F
 
@@ -812,6 +813,27 @@ def check_flash_backward(dev):
             if dq[b, :, n:].any():
                 raise RuntimeError(f"{label}: dq is not zero on the padded rows of batch row {b}")
         del want_dq, want_dk, want_dv
+        scratch = 0
+        if biased:
+            # the bytes of the scratch of dS slabs that the first call allocated
+            scratch = FA._flash_dq_dbias.scratch_bytes
+            # K5's dbias is summed in a fixed order: a second call gives the same bits. That call's
+            # scratch starts as NaN, so a reduce that read an entry no block stored fails here too:
+            # the allocator hands the second call's dq and scratch the blocks of the same sizes
+            # freed just before it, and the run checks that the scratch got the NaN-filled one.
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            spare = torch.empty_like(q)
+            poison = torch.full((scratch // 4,), float("nan"), device=dev)
+            poisoned = poison.data_ptr()
+            del spare, poison
+            again_dq, again_dbias = run_dq()
+            torch.cuda.synchronize()
+            if FA._flash_dq_dbias.scratch_ptr != poisoned:
+                raise RuntimeError(f"{label}: the second K5 call's scratch did not start as NaN")
+            if not (torch.equal(again_dq, dq) and torch.equal(again_dbias, dbias)):
+                raise RuntimeError(f"{label}: two K5 calls differ in dq or dbias")
+            del again_dq, again_dbias
 
         library_ms = None
         if not dropped:  # no one call applies a given 0/1 tile to the weights
@@ -846,8 +868,13 @@ def check_flash_backward(dev):
             tc_ms = bound_tc(bytes_moved, ops)
             err = max(errs[key] for key in err_keys if key in errs)
             lib_txt = "none" if library_ms is None else f"{library_ms:.4f} ms (dq, dk and dv in one call)"
+            scratch_txt = "" if kernel == "K3" else (
+                f"; scratch {scratch / 1e6:.1f} MB, two calls bit-identical, the second on a "
+                f"NaN-filled scratch" if scratch
+                else "; no scratch")
             log(f"[{kernel} {label}] [{B}, {H}, {L}, {Dh}] f32 window {window}: max_abs_err "
-                f"{err:.3e} (atol/rtol 1e-4, {' and '.join(k for k in err_keys if k in errs)}); "
+                f"{err:.3e} (atol/rtol 1e-4, {' and '.join(k for k in err_keys if k in errs)}"
+                f"{scratch_txt}); "
                 f"kernel {ms:.4f} ms ({device_ms:.4f} ms device time), "
                 f"bound {bound_ms:.4f} ms ({bound_by}: {ops / 1e9:.2f} GFLOP, "
                 f"{bytes_moved / 1e6:.0f} MB), 3xTF32 floor {tc_ms:.4f} ms, "
@@ -856,7 +883,8 @@ def check_flash_backward(dev):
             rows.append({"kernel": kernel, "label": label, "shape": [B, H, L, Dh], "window": window,
                          "max_abs_err": err, "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
                          "bound_ms": bound_ms, "bound_by": bound_by, "bound_tc_ms": tc_ms,
-                         "library_ms": library_ms})
+                         "library_ms": library_ms,
+                         **({} if kernel == "K3" else {"scratch_bytes": scratch})})
         del q, k, v, do, out, dq, dk, dv
 
     def entry(name, kernel, line):

@@ -31,33 +31,40 @@
 // D of the rows below the length, the gradients of every row) take at
 // 3.35 TB/s.
 //
-// K4 and K5 (float32 on the CUDA cores): 256 threads own a 64 x 64 tile of
-// (query, key) pairs at a time, each thread a 4 x 4 micro-tile of s and dP
-// computed in one pass over Dh from shared-memory tiles of Q, dO, K and V
-// (rows padded by 4 floats so the float4 reads do not conflict). dS goes
-// through shared memory into the second product, whose accumulators stay in
-// registers; nothing score-shaped reaches device memory. Only tiles inside
-// the band and below the length are visited. A block owns 64 query rows and
-// walks their key tiles; K4 runs one block per (batch row, head, query tile).
-// K5's dbias has no sequential grid to lean on. One block per (head, query
-// tile) loops over the batch IN ORDER and adds its dS into a partial [64, 64
-// + 2*half] of its own in device memory (column = key - (q0 - half); plain
-// read-modify-write, no atomics: no other block touches it). A second kernel
-// then sums, for each (head, row, offset) of the tile, the partials of the
-// query positions i = row, row + block, ... in order. The result does not
-// depend on scheduling.
+// All three kernels run their products on the tensor cores: m16n8k8 3xTF32
+// fragments (tf32x3.cuh), X Y^T operands by ldmatrix, the C fragment of P or
+// dS reused as the A fragment of the next product (no shuffle, no trip
+// through shared memory), every 8-column group of a tile computed (branches
+// per group cost more than the products they skip), the elementwise step
+// branch-free, tiles staged by cp.async into one buffer each and refilled in
+// turn while the other product runs, the bias and 0/1 entries of a 64 x 64
+// tile staged by rows with 16-byte copies. The products run over Dh rounded
+// up to 32 (zero columns in shared memory): four instantiations each, for Dh
+// up to 32, 64, 96 and 128. Times against both floors are in PERF.md.
 //
-// K3 (redesigned for Hopper's tensor cores; see flash_local_dkv_kernel): all
-// four products in m16n8k8 3xTF32 fragments (tf32x3.cuh), key-major so that
-// P^T and dS^T stay in registers as the A operand of dV and dK; the
-// operands of K Q^T and V dO^T by ldmatrix; every 8-query group of a tile computed
-// (branches per group cost more than the products they skip); the
-// elementwise step branch-free; Q and dO tiles by cp.async, one buffer each,
-// refilled in turn while the other product runs; 103 KB of shared memory at
-// Dh 96, two blocks per SM (the float32 CUDA-core design it replaces held
-// six tiles, 138 KB, one block per SM); the bias and 0/1 entries of a 64 x 64
-// tile are staged by rows with 16-byte copies instead of being read one by
-// one from device memory. Times against both floors are in PERF.md.
+// K4 and K5 (flash_local_dq_kernel), query-major so that dS comes out as A
+// rows: a block of 4 warps owns 64 query rows, 16 per warp, and walks the
+// 64-key tiles of their band below the length; dQ accumulates in registers.
+// Q and dO of its rows stay in shared memory; K and V have one buffer each:
+// V of tile t + 1 loads while S, the elementwise step and dS K of tile t run,
+// K of tile t + 1 while dP of tile t + 1 runs. 100.5 KB of shared memory at
+// Dh 96: two blocks per SM. One block per (batch row, head, query tile) for
+// both, so K5 has no loop over the batch. K5's dbias needs a sum across
+// blocks that Hopper does not order: each block STORES the dS of its valid
+// pairs (query below the length, key in the band and below the length) once
+// into a slab of its own, [64, 2*half + 1] with column key - query + half
+// (plain stores; no read-modify-write, no atomics), and a second kernel sums,
+// for each (head, row residue, offset), the entries of the batch rows in
+// order and, within each, of the query positions in order. The result does
+// not depend on scheduling, and no entry it reads is one that no block
+// wrote, so the scratch is not zeroed. It takes 4 * B * H * ceil(L/64) * 64 *
+// (2*half + 1) bytes: 225 MB at [8, 8, 3600, *] window 240, of which the
+// valid pairs of those lengths are written and read once.
+//
+// K3 (flash_local_dkv_kernel), key-major so that P^T and dS^T come out as A
+// rows: a block owns 64 keys and walks the query tiles that see them; K and V
+// stay in shared memory, Q and dO are refilled in turn; dK and dV accumulate
+// in registers; 103 KB at Dh 96, two blocks per SM.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -68,13 +75,11 @@ namespace {
 
 using mts::FragA;
 
-constexpr int kBQ = 64;        // rows of the tile a block owns
-constexpr int kBK = 64;        // rows of the tiles it walks
-constexpr int kThreads = 256;  // K4, K5: 16 row groups x 16 column lanes
-constexpr int kThreadsTC = 128;  // K3: 4 warps of 16 keys each
-constexpr int kPS = kBK + 4;   // row stride of the dS / P tiles
+constexpr int kBQ = 64;          // rows of the tile a block owns
+constexpr int kBK = 64;          // rows of the tiles it walks
+constexpr int kThreadsTC = 128;  // 4 warps of 16 rows (K4, K5: queries; K3: keys)
 constexpr int kMaxDh = 128;
-constexpr int kPvGroup = 4;  // column tiles per pass of K3's dV and dK products
+constexpr int kPvGroup = 4;  // column tiles per pass of the dQ, dV and dK products
 
 struct Params {
   const float* q;
@@ -89,220 +94,224 @@ struct Params {
   float* dq;
   float* dk;
   float* dv;
-  float* partial;      // [H, tiles, kBQ, kBQ + 2*half] or null: K5's dS sums
+  float* partial;      // [B, H, tiles, kBQ, 2*half + 1] or null: K5's dS
   int B, H, L, Dh, half, block, nb, tiles;
   float scale, keep;
 };
 
-__device__ __forceinline__ float at(const float4& f, int u) {
-  return u == 0 ? f.x : (u == 1 ? f.y : (u == 2 ? f.z : f.w));
-}
-
-// rows [row0, row0 + 64) of a [L, Dh] matrix into a padded shared tile; rows
-// at or past `row_end` are zero-filled (0 * garbage must not make a NaN)
-__device__ __forceinline__ void load_tile(float* dst, const float* src, int row0, int row_end,
-                                          int Dh, int DS, int tid) {
-  const int d4n = Dh >> 2;
-  for (int idx = tid; idx < 64 * d4n; idx += kThreads) {
-    const int row = idx / d4n;
-    const int c4 = idx - row * d4n;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + row < row_end)
-      val = *reinterpret_cast<const float4*>(src + static_cast<size_t>(row0 + row) * Dh + 4 * c4);
-    *reinterpret_cast<float4*>(dst + row * DS + 4 * c4) = val;
-  }
-}
-
-// s[r][c] = A[ty*4+r] . B[tx+16c] and t[r][c] = C[ty*4+r] . D[tx+16c] over Dh
-__device__ __forceinline__ void two_products(const float* A, const float* Bm, const float* C,
-                                             const float* Dm, int Dh, int DS, int tx, int ty,
-                                             float (&s)[4][4], float (&t)[4][4]) {
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      s[r][c] = 0.f;
-      t[r][c] = 0.f;
-    }
-  for (int d = 0; d < Dh; d += 4) {
-    float4 a[4], b[4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r) a[r] = *reinterpret_cast<const float4*>(A + (ty * 4 + r) * DS + d);
-#pragma unroll
-    for (int c = 0; c < 4; ++c) b[c] = *reinterpret_cast<const float4*>(Bm + (tx + 16 * c) * DS + d);
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-        s[r][c] += a[r].x * b[c].x + a[r].y * b[c].y + a[r].z * b[c].z + a[r].w * b[c].w;
-#pragma unroll
-    for (int r = 0; r < 4; ++r) a[r] = *reinterpret_cast<const float4*>(C + (ty * 4 + r) * DS + d);
-#pragma unroll
-    for (int c = 0; c < 4; ++c) b[c] = *reinterpret_cast<const float4*>(Dm + (tx + 16 * c) * DS + d);
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-        t[r][c] += a[r].x * b[c].x + a[r].y * b[c].y + a[r].z * b[c].z + a[r].w * b[c].w;
-  }
-}
-
-// K4 and K5. DC = ceil(Dh / 16): dq columns per thread.
-template <int DC>
-__global__ void __launch_bounds__(kThreads)
+// K4 and K5 on the tensor cores. NC: 8-column chunks of the head dim this
+// instantiation holds (4, 8, 12 or 16). A block of 4 warps owns 64 query rows,
+// each warp 16, and walks the 64-key tiles (aligned to 64) that their band
+// meets below the length. Per tile, query-major so that dS comes out as A rows:
+//   dP = dO V^T and S = Q K^T (3xTF32 fragments in registers);
+//   P = exp(scale * S + bias - lse), dS = P * (dP M / keep - D);
+//   dQ += dS K, the C fragment of dS reused as the A fragment.
+// Q and dO (with lse and D) stay in shared memory; K (with the staged bias /
+// 0/1 entries) and V have one buffer each, refilled by cp.async in turn: V of
+// tile t + 1 loads while S, dS and dS K of tile t run, K of tile t + 1 while
+// dP of tile t + 1 runs. With `partial` (K5) each valid pair's dS is also
+// stored into the block's slab [64, 2*half + 1] at column key - query + half.
+// 100.5 KB of shared memory at Dh 96: two blocks per SM; at Dh 32, three.
+template <int NC>
+__global__ void __launch_bounds__(kThreadsTC, NC <= 4 ? 3 : 2)
 flash_local_dq_kernel(const Params p) {
   extern __shared__ __align__(16) float smem[];
   const int Dh = p.Dh;
-  const int DS = Dh + 4;
+  const int DS = mts::tile_stride(Dh);
   float* Qs = smem;
-  float* Os = Qs + kBQ * DS;   // dO
+  float* Os = Qs + kBQ * DS;  // dO
   float* Ks = Os + kBQ * DS;
   float* Vs = Ks + kBK * DS;
-  float* Ss = Vs + kBK * DS;   // dS
-  float* lse_s = Ss + kBQ * kPS;
+  float* lse_s = Vs + kBK * DS;
   float* dd_s = lse_s + kBQ;
+  float* Bs = dd_s + kBQ;                                 // bias entries [query][key]
+  float* Ms = Bs + (p.bias != nullptr ? kBQ * mts::kTS : 0);  // 0/1 entries [query][key]
 
   const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-  const int tile = blockIdx.x % p.tiles;
-  const int outer = blockIdx.x / p.tiles;
-  const int q0 = tile * kBQ;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int bh = blockIdx.x / p.tiles;
+  const int q0 = (blockIdx.x - bh * p.tiles) * kBQ;
+  const int h = bh % p.H;
   const int L = p.L;
   const int half = p.half;
   const int block = p.block;
   const int three = 3 * block;
-  const int qend = min(q0 + kBQ, L);
-  const int wp = kBQ + 2 * half;
-  // K5 (partial given): this block serves head `outer` and every batch row in
-  // order. K4: it serves the one (batch row, head) pair `outer`.
-  const bool per_head = p.partial != nullptr;
-  const int h = per_head ? outer : outer % p.H;
-  const int b_first = per_head ? 0 : outer / p.H;
-  const int b_last = per_head ? p.B : b_first + 1;
+  const int length = min(max(p.lengths[bh / p.H], 0), L);
+  const int qhi = min(min(q0 + kBQ, L), length);  // first row of the tile without a gradient
+  const int wr = 16 * warp;                       // this warp's first row in the tile
+  const int r0 = q0 + wr;
+  const size_t base = static_cast<size_t>(bh) * L * Dh;
+  const float* kb = p.k + base;
+  const float* vb = p.v + base;
+  const float* bias_h = p.bias != nullptr ? p.bias + static_cast<size_t>(h) * block * three : nullptr;
+  const float* drop_bh =
+      p.drop != nullptr ? p.drop + static_cast<size_t>(bh) * p.nb * block * three : nullptr;
+  const float inv_keep = 1.f / p.keep;
+  // K5: this block's slab of dS, [64][2*half + 1]; blockIdx.x = (b*H + h)*tiles + tile
+  const int wd = 2 * half + 1;
+  float* part = p.partial != nullptr ? p.partial + static_cast<size_t>(blockIdx.x) * kBQ * wd
+                                     : nullptr;
 
-  bool colok[DC];
+  float dq[NC][4];  // rows: queries g, g + 8 of the warp; columns 8c + 2t, + 1
 #pragma unroll
-  for (int c = 0; c < DC; ++c) colok[c] = tx + 16 * c < Dh;
-
-  for (int b = b_first; b < b_last; ++b) {
-    const int bh = b * p.H + h;
-    const int length = min(max(p.lengths[b], 0), L);
-    const int qhi = min(qend, length);  // first row of the tile without a gradient
-    const size_t base = static_cast<size_t>(bh) * L * Dh;
-    const float* kb = p.k + base;
-    const float* vb = p.v + base;
-
-    float acc[4][DC];
+  for (int c = 0; c < NC; ++c)
 #pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < DC; ++c) acc[r][c] = 0.f;
+    for (int e = 0; e < 4; ++e) dq[c][e] = 0.f;
 
-    if (q0 < qhi) {
-      load_tile(Qs, p.q + base, q0, qhi, Dh, DS, tid);
-      load_tile(Os, p.dout + base, q0, qhi, Dh, DS, tid);
-      if (tid < kBQ) {
-        const bool in = q0 + tid < qhi;
-        lse_s[tid] = in ? p.lse[static_cast<size_t>(bh) * L + q0 + tid] : 0.f;
-        dd_s[tid] = in ? p.dd[static_cast<size_t>(bh) * L + q0 + tid] : 0.f;
+  mts::zero_pad_columns<kThreadsTC, NC>(smem, 2 * kBQ + 2 * kBK, DS, Dh, tid);
+
+  // the keys these rows see: within half of a row below the length, and below it
+  const int khi = q0 < qhi ? min(qhi - 1 + half, length - 1) : -1;  // the last one
+  const int kfirst = max(0, q0 - half) & ~(kBK - 1);
+
+  // K of tile k0 and the staged bias / 0/1 entries of its 64 x 64 pairs
+  auto stage_k = [&](int k0) {
+    mts::stage_rows<kThreadsTC, kBK, NC>(Ks, DS, kb, k0, khi + 1, Dh, tid);
+    if (bias_h != nullptr)
+      mts::stage_tile<kThreadsTC, kBQ>(Bs, bias_h, true, q0, k0, false, L, block, tid);
+    if (drop_bh != nullptr)
+      mts::stage_tile<kThreadsTC, kBQ>(Ms, drop_bh, false, q0, k0, false, L, block, tid);
+  };
+
+  if (kfirst <= khi) {
+    mts::stage_rows<kThreadsTC, kBQ, NC>(Qs, DS, p.q + base, q0, qhi, Dh, tid);
+    mts::stage_rows<kThreadsTC, kBQ, NC>(Os, DS, p.dout + base, q0, qhi, Dh, tid);
+    if (tid < 2 * kBQ) {
+      const int r = tid & (kBQ - 1);
+      const bool in = q0 + r < qhi;
+      const float* src = (tid < kBQ ? p.lse : p.dd) + static_cast<size_t>(bh) * L;
+      mts::cp_async4((tid < kBQ ? lse_s : dd_s) + r, in ? src + q0 + r : src, in);
+    }
+    mts::stage_rows<kThreadsTC, kBK, NC>(Vs, DS, vb, kfirst, khi + 1, Dh, tid);
+    mts::cp_async_commit();
+    stage_k(kfirst);
+    mts::cp_async_commit();
+  }
+
+  for (int k0 = kfirst; k0 <= khi; k0 += kBK) {
+    const bool next = k0 + kBK <= khi;
+    // does any row of this warp with a gradient see a key of the tile?
+    const bool active = r0 < qhi && k0 <= r0 + 15 + half && k0 + kBK - 1 >= r0 - half;
+    float s[8][4], dp[8][4];  // C layout: rows queries g, g + 8; columns keys 8n + 2t, + 1
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[n][e] = 0.f;
+        dp[n][e] = 0.f;
       }
-      const int klo = max(0, q0 - half);
-      const int khi = min(qhi - 1 + half, length - 1);
-      for (int k0 = klo; k0 <= khi; k0 += kBK) {
-        load_tile(Ks, kb, k0, khi + 1, Dh, DS, tid);
-        load_tile(Vs, vb, k0, khi + 1, Dh, DS, tid);
-        __syncthreads();
 
-        float s[4][4], dp[4][4];
-        two_products(Qs, Ks, Os, Vs, Dh, DS, tx, ty, s, dp);
-
+    mts::cp_async_wait<1>();  // Q, dO, lse, D and this tile's V
+    __syncthreads();
+    if (active) {
 #pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const int row = ty * 4 + r;
-          const int qpos = q0 + row;
-          const int jq = qpos / block;
-          const int qr = qpos - jq * block;
-          const float lse = lse_s[row];
-          const float dd = dd_s[row];
-#pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            const int kpos = k0 + tx + 16 * c;
-            const bool ok = qpos < qhi && kpos <= khi && abs(kpos - qpos) <= half;
-            float ds = 0.f;
-            if (ok) {
-              const int col = kpos - jq * block + block;
-              float sv = p.scale * s[r][c];
-              if (p.bias != nullptr) sv += p.bias[(static_cast<size_t>(h) * block + qr) * three + col];
-              const float pv = expf(sv - lse);
-              float dpv = dp[r][c];
-              if (p.drop != nullptr)
-                dpv = dpv * p.drop[(static_cast<size_t>(bh) * p.nb * block + qpos) * three + col] /
-                      p.keep;
-              ds = pv * (dpv - dd);
-              if (per_head)
-                p.partial[((static_cast<size_t>(h) * p.tiles + tile) * kBQ + row) * wp +
-                          (kpos - q0 + half)] += ds;
-            }
-            Ss[row * kPS + tx + 16 * c] = ds;
-          }
-        }
-        __syncthreads();
-
-        for (int kk = 0; kk < kBK; kk += 4) {
-          float4 sr[4];
-#pragma unroll
-          for (int r = 0; r < 4; ++r)
-            sr[r] = *reinterpret_cast<const float4*>(Ss + (ty * 4 + r) * kPS + kk);
-#pragma unroll
-          for (int u = 0; u < 4; ++u) {
-            float kv[DC];
-#pragma unroll
-            for (int c = 0; c < DC; ++c) kv[c] = colok[c] ? Ks[(kk + u) * DS + tx + 16 * c] : 0.f;
-#pragma unroll
-            for (int r = 0; r < 4; ++r) {
-              const float su = at(sr[r], u);
-#pragma unroll
-              for (int c = 0; c < DC; ++c) acc[r][c] += su * kv[c];
-            }
-          }
-        }
-        __syncthreads();
+      for (int kc = 0; kc < NC; ++kc) {
+        FragA a;
+        mts::load_a(a, Os, DS, wr, 8 * kc, lane);
+        mts::mma3_xyt(dp, a, Vs, DS, 8 * kc, lane);
       }
     }
+    __syncthreads();  // every warp is done with V
+    if (next) mts::stage_rows<kThreadsTC, kBK, NC>(Vs, DS, vb, k0 + kBK, khi + 1, Dh, tid);
+    mts::cp_async_commit();
+    mts::cp_async_wait<1>();  // this tile's K and staged entries
+    __syncthreads();
+    if (active) {
+#pragma unroll
+      for (int kc = 0; kc < NC; ++kc) {
+        FragA a;
+        mts::load_a(a, Qs, DS, wr, 8 * kc, lane);
+        mts::mma3_xyt(s, a, Ks, DS, 8 * kc, lane);
+      }
+      // all pairs of the warp's 16 x 64 sub-tile inside the band and below the length
+      const bool full = r0 + 15 < qhi && k0 + kBK - 1 < length && k0 + kBK - 1 - r0 <= half &&
+                        r0 + 15 - k0 <= half;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int lq = wr + g + 8 * i;
+        const int qpos = q0 + lq;
+        const float lse_q = lse_s[lq];
+        const float dd_q = dd_s[lq];
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int lk = 8 * n + 2 * t + e;
+            const int kpos = k0 + lk;
+            const bool ok = full || (qpos < qhi && kpos < length && abs(kpos - qpos) <= half);
+            float sv = p.scale * s[n][2 * i + e];
+            if (bias_h != nullptr) sv += Bs[lq * mts::kTS + lk];
+            const float pv = __expf(sv - lse_q);
+            float dpv = dp[n][2 * i + e];
+            if (drop_bh != nullptr) dpv = dpv * (Ms[lq * mts::kTS + lk] * inv_keep);
+            // masked pairs give zeros whatever pv is (rows past the length read lse 0)
+            const float ds = ok ? pv * (dpv - dd_q) : 0.f;
+            s[n][2 * i + e] = ds;
+            if (part != nullptr && ok) part[lq * wd + (kpos - qpos + half)] = ds;
+          }
+      }
+      // dQ += dS K over the tile's 64 keys, 8 at a time (scaled on the way out)
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        FragA a;
+        mts::a_from_c(a, s[kk]);
+        mts::mma3_pv<kPvGroup, NC>(dq, a, Ks, DS, 8 * kk, g, t);
+      }
+    }
+    __syncthreads();  // every warp is done with K and the staged entries
+    if (next) stage_k(k0 + kBK);
+    mts::cp_async_commit();
+  }
 
-    float* dqb = p.dq + base;
+  // rows at or past the length get zeros
+  float* dqb = p.dq + base;
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int qpos = q0 + ty * 4 + r;
-      if (qpos < L) {
+  for (int i = 0; i < 2; ++i) {
+    const int qpos = r0 + g + 8 * i;
+    if (qpos < L) {
 #pragma unroll
-        for (int c = 0; c < DC; ++c)
-          if (colok[c]) dqb[static_cast<size_t>(qpos) * Dh + tx + 16 * c] = p.scale * acc[r][c];
+      for (int c = 0; c < NC; ++c) {
+        const int col = 8 * c + 2 * t;
+        if (col < Dh)
+          *reinterpret_cast<float2*>(dqb + static_cast<size_t>(qpos) * Dh + col) =
+              make_float2(p.scale * dq[c][0 + 2 * i], p.scale * dq[c][1 + 2 * i]);
       }
     }
   }
 }
 
-// K5's second pass: dbias[h][qr][c] = sum over the query positions i = qr,
-// qr + block, ... < L, in order, of the partial dS at (i, i + c - block - qr).
+// K5's second pass: dbias[h][qr][c] = with off = c - block - qr (key - query),
+// the sum over the batch rows b in order and, within each, over the query
+// positions i = qr, qr + block, ... in order, of the dS that the block owning
+// (b, h, i) stored at (i, off): exactly the entries with i and i + off in
+// [0, length_b) and |off| <= half, the pairs that carry a gradient.
 __global__ void flash_local_dbias_reduce_kernel(const float* __restrict__ partial,
-                                                float* __restrict__ dbias, int H, int L,
+                                                const int* __restrict__ lengths,
+                                                float* __restrict__ dbias, int B, int H, int L,
                                                 int half, int block, int tiles) {
   const int three = 3 * block;
-  const int wp = kBQ + 2 * half;
+  const int wd = 2 * half + 1;
   const long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (idx >= static_cast<long long>(H) * block * three) return;
   const int c = static_cast<int>(idx % three);
   const int qr = static_cast<int>((idx / three) % block);
   const int h = static_cast<int>(idx / (static_cast<long long>(three) * block));
-  const int off = c - block - qr;  // key - query
+  const int off = c - block - qr;
   float sum = 0.f;
   if (abs(off) <= half) {
-    for (int qpos = qr; qpos < L; qpos += block) {
-      const int t = qpos / kBQ;
-      const int r = qpos - t * kBQ;
-      sum += partial[((static_cast<size_t>(h) * tiles + t) * kBQ + r) * wp + (off + r + half)];
+    for (int b = 0; b < B; ++b) {
+      const int length = min(max(lengths[b], 0), L);
+      // the query positions qr + m*block with i < length, i + off >= 0, i + off < length
+      const int lo = max(0, -off);
+      const int hi = min(length, length - off);
+      int i = qr;
+      if (i < lo) i += ((lo - i + block - 1) / block) * block;
+      const float* slabs = partial + (static_cast<size_t>(b) * H + h) * tiles * kBQ * wd;
+#pragma unroll 4
+      for (; i < hi; i += block) sum += slabs[static_cast<size_t>(i) * wd + (off + half)];
     }
   }
   dbias[idx] = sum;
@@ -509,9 +518,10 @@ flash_local_dkv_kernel(const Params p) {
   }
 }
 
-size_t dq_smem(int Dh) {
-  return (static_cast<size_t>(2 * kBQ + 2 * kBK) * (Dh + 4) + static_cast<size_t>(kBQ) * kPS +
-          2 * kBQ) * sizeof(float);
+size_t dq_smem(const Params& p) {
+  return (static_cast<size_t>(2 * kBQ + 2 * kBK) * mts::tile_stride(p.Dh) + 2 * kBQ +
+          (p.bias != nullptr ? kBQ * mts::kTS : 0) + (p.drop != nullptr ? kBQ * mts::kTS : 0)) *
+         sizeof(float);
 }
 
 size_t dkv_smem(const Params& p) {
@@ -520,16 +530,16 @@ size_t dkv_smem(const Params& p) {
          sizeof(float);
 }
 
-template <int DC>
+template <int NC>
 int launch_dq(const Params& p, unsigned blocks, cudaStream_t s) {
-  const size_t bytes = dq_smem(p.Dh);
+  const size_t bytes = dq_smem(p);
   if (bytes > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(flash_local_dq_kernel<DC>,
+    const cudaError_t err = cudaFuncSetAttribute(flash_local_dq_kernel<NC>,
                                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                  static_cast<int>(bytes));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  flash_local_dq_kernel<DC><<<blocks, kThreads, bytes, s>>>(p);
+  flash_local_dq_kernel<NC><<<blocks, kThreadsTC, bytes, s>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -546,18 +556,6 @@ int launch_dkv(const Params& p, unsigned blocks, cudaStream_t s) {
   return static_cast<int>(cudaGetLastError());
 }
 
-#define MTS_DISPATCH_DC(fn, ...)                      \
-  switch ((p.Dh + 15) / 16) {                         \
-    case 1: return fn<1>(__VA_ARGS__);                \
-    case 2: return fn<2>(__VA_ARGS__);                \
-    case 3: return fn<3>(__VA_ARGS__);                \
-    case 4: return fn<4>(__VA_ARGS__);                \
-    case 5: return fn<5>(__VA_ARGS__);                \
-    case 6: return fn<6>(__VA_ARGS__);                \
-    case 7: return fn<7>(__VA_ARGS__);                \
-    default: return fn<8>(__VA_ARGS__);               \
-  }
-
 bool prepare(Params& p) {
   if (p.B <= 0 || p.H <= 0 || p.L <= 0 || p.Dh <= 0 || p.Dh % 4 != 0 || p.Dh > kMaxDh ||
       p.half < 0 || p.block < 1 || p.block < p.half || p.keep <= 0.f)
@@ -567,23 +565,32 @@ bool prepare(Params& p) {
   return true;
 }
 
+// One block per (batch row, head, 64-row tile) for K4, K5 and K3 alike; the
+// staged bias / 0/1 entries are copied 16 bytes at a time (block % 8 == 0).
+bool prepare_grid(Params& p, unsigned& blocks) {
+  if (!prepare(p) || p.block % 8 != 0) return false;
+  const long long n = static_cast<long long>(p.B) * p.H * p.tiles;
+  if (n > 0x7fffffffLL) return false;
+  blocks = static_cast<unsigned>(n);
+  return true;
+}
+
 int run_dq(Params p, void* stream) {
-  if (!prepare(p)) return static_cast<int>(cudaErrorInvalidValue);
-  const long long outer = p.partial != nullptr ? p.H : static_cast<long long>(p.B) * p.H;
-  const long long blocks = outer * p.tiles;
-  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  unsigned n = 0;
+  if (!prepare_grid(p, n)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const unsigned n = static_cast<unsigned>(blocks);
-  MTS_DISPATCH_DC(launch_dq, p, n, s)
+  switch ((p.Dh + 31) / 32) {
+    case 1: return launch_dq<4>(p, n, s);
+    case 2: return launch_dq<8>(p, n, s);
+    case 3: return launch_dq<12>(p, n, s);
+    default: return launch_dq<16>(p, n, s);
+  }
 }
 
 int run_dkv(Params p, void* stream) {
-  // the staged bias / 0/1 entries are copied 16 bytes at a time
-  if (!prepare(p) || p.block % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
-  const long long blocks = static_cast<long long>(p.B) * p.H * p.tiles;
-  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  unsigned n = 0;
+  if (!prepare_grid(p, n)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const unsigned n = static_cast<unsigned>(blocks);
   switch ((p.Dh + 31) / 32) {
     case 1: return launch_dkv<4>(p, n, s);
     case 2: return launch_dkv<8>(p, n, s);
@@ -611,7 +618,8 @@ Params make_params(const float* q, const float* k, const float* v, const float* 
 // success). q, k, v, dout and the gradients: [B, H, L, Dh] float32, contiguous,
 // 16-byte aligned, Dh % 4 == 0, Dh <= 128. lse, dd: [B, H, L]. lengths: [B]
 // int32. bias: [H, block, 3*block] or null; drop: [B*H, ceil(L/block)*block,
-// 3*block] of 0/1 or null; block >= half is the geometry the two are laid out in.
+// 3*block] of 0/1 or null; block >= half is the geometry the two are laid out in,
+// and block % 8 == 0 (their rows are staged 16 bytes at a time).
 
 // K4: dq.
 extern "C" int mts_flash_local_dq_f32(const float* q, const float* k, const float* v,
@@ -626,7 +634,8 @@ extern "C" int mts_flash_local_dq_f32(const float* q, const float* k, const floa
 }
 
 // K5: dq and dbias [H, block, 3*block]. `partial` is scratch of
-// H * ceil(L/64) * 64 * (64 + 2*half) floats that the caller has ZEROED.
+// B * H * ceil(L/64) * 64 * (2*half + 1) floats; it need not be zeroed (the
+// reduce reads only the entries the dq kernel stored).
 extern "C" int mts_flash_local_dq_dbias_f32(const float* q, const float* k, const float* v,
                                             const float* dout, const float* lse, const float* dd,
                                             const int* lengths, const float* bias,
@@ -645,7 +654,7 @@ extern "C" int mts_flash_local_dq_dbias_f32(const float* q, const float* k, cons
   const int threads = 256;
   flash_local_dbias_reduce_kernel<<<static_cast<unsigned>((n + threads - 1) / threads), threads, 0,
                                     static_cast<cudaStream_t>(stream)>>>(
-      partial, dbias, H, L, half, block, (L + kBQ - 1) / kBQ);
+      partial, lengths, dbias, B, H, L, half, block, (L + kBQ - 1) / kBQ);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -344,11 +344,14 @@ _flash_dq.launches = 0
 
 def _flash_dq_dbias(q, k, v, mask, lse, do, dd, window: int, bias, scale: bool = False,
                     drop_mask=None, keep: float = 1.0):
-    """K5 -> (dq [B, H, L, Dh], dbias [H, block, 3*block]). The kernel keeps
-    one partial of dS per (head, 64-row query tile), summed over the batch in
-    order by the one thread block that owns it, and a second kernel adds the
-    partials of each (row, offset) in a fixed order: the result does not
-    depend on scheduling."""
+    """K5 -> (dq [B, H, L, Dh], dbias [H, block, 3*block]). Each thread
+    block of the dq kernel (one per batch row, head and 64-row query tile)
+    stores the dS of its valid pairs once into a slab of its own in a scratch
+    [B, H, tiles, 64, 2*half + 1] (column = key - query + half), and a
+    second kernel sums, for each (head, row, offset), the batch rows and
+    query positions in a fixed order: the result does not depend on
+    scheduling. The reduce reads only entries that were stored, so the
+    scratch is not zeroed."""
     half, block, _ = _bwd_args(q, k, v, mask, lse, do, dd, window, bias, drop_mask, keep)
     if q.device.type == "cpu":
         return flash_dq_reference(q, k, v, mask, lse, do, dd, window, bias, scale, drop_mask, keep)
@@ -359,7 +362,7 @@ def _flash_dq_dbias(q, k, v, mask, lse, do, dd, window: int, bias, scale: bool =
         return dq, dbias.zero_()
     lengths = _lengths(mask.to(q.device)).contiguous()
     tiles = -(-L // BWD_TILE)
-    partial = torch.zeros(H, tiles, BWD_TILE, BWD_TILE + 2 * half, dtype=torch.float32,
+    partial = torch.empty(B, H, tiles, BWD_TILE, 2 * half + 1, dtype=torch.float32,
                           device=q.device)
     fn = _bwd_library()[1]
     with torch.cuda.device(q.device):
@@ -371,10 +374,14 @@ def _flash_dq_dbias(q, k, v, mask, lse, do, dd, window: int, bias, scale: bool =
     if rc != 0:
         raise RuntimeError(f"flash_local_attention dq+dbias kernel launch failed: cudaError {rc}")
     _flash_dq_dbias.launches += 1
+    _flash_dq_dbias.scratch_bytes = partial.nbytes
+    _flash_dq_dbias.scratch_ptr = partial.data_ptr()
     return dq, dbias
 
 
 _flash_dq_dbias.launches = 0
+_flash_dq_dbias.scratch_bytes = 0  # size and address of the last launch's scratch
+_flash_dq_dbias.scratch_ptr = None
 
 
 def _flash_dkv(q, k, v, mask, lse, do, dd, window: int, bias=None, scale: bool = True,

@@ -359,3 +359,7 @@ def test_cuda_backward_kernels_match_plain(window, L, Dh, empty, biased, scale, 
     for g, w in zip(got, (want_dq, want_dk, want_dv, want_dbias)):
         if w is not None:
             torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)
+    if biased:  # K5 sums dbias in a fixed order: a second call gives the same bits
+        again = FA._flash_dq_dbias(q, k, v, mask, lse, do, dd, window, bias, scale, tile, keep)
+        assert torch.equal(again[0], got[0]) and torch.equal(again[1], got[3])
+

@@ -1,5 +1,5 @@
-"""The arithmetic of the flash kernels K2 (forward) and K3 (dk/dv) on the
-tensor cores, emulated on the CPU: every float32 product in three TF32
+"""The arithmetic of the flash kernels K2 (forward), K4 and K5 (dq, dbias)
+and K3 (dk/dv) on the tensor cores, emulated on the CPU: every float32 product in three TF32
 passes ("3xTF32"), held against the JAX package's Pallas kernels in
 interpret mode.
 
@@ -149,6 +149,31 @@ def test_dkv_in_three_tf32_passes_matches_pallas(monkeypatch, Dh, window, biased
     dk, dv = FA.flash_dkv_reference(tq, tk, tv, tm, tlse, tdo, dd, window, tb, scale, tt, keep)
     np.testing.assert_allclose(dk.numpy(), np.asarray(want[1]), atol=ATOL, rtol=ATOL, err_msg="dk")
     np.testing.assert_allclose(dv.numpy(), np.asarray(want[2]), atol=ATOL, rtol=ATOL, err_msg="dv")
+
+
+@pytest.mark.parametrize("Dh,window,biased,scale,dropped", CASES)
+def test_dq_in_three_tf32_passes_matches_pallas(monkeypatch, Dh, window, biased, scale, dropped):
+    """K4's and K5's arithmetic: dq on every row and, with a bias tile, dbias,
+    from the emulated forward's O and lse, within 1e-5 of `_flash_bwd_impl`
+    in interpret mode (the biased, unscaled Dh 64 case is RecurrentLongT5's)."""
+    q, k, v, do, mask, bias, key, tile = _inputs(Dh, window, biased, scale, dropped, seed=2)
+    out, lse = _jax_forward(q, k, v, mask, window, bias, scale, key)
+    want = JP._flash_bwd_impl(*(jnp.asarray(a) for a in (q, k, v, mask)), out, lse,
+                              jnp.asarray(do), window, True,
+                              bias=None if bias is None else jnp.asarray(bias), scale=scale,
+                              dropkey=key, rate=RATE if dropped else 0.0)
+    tq, tk, tv, tdo, tm, tb, tt = _torch(q, k, v, do, mask, bias, tile)
+    keep = 1.0 - RATE if dropped else 1.0
+    monkeypatch.setattr(torch, "einsum", einsum_3xtf32)
+    tout, tlse = FA.flash_local_attention_reference(tq, tk, tv, tm, window, tb, scale, tt, keep)
+    dd = (tdo * tout).sum(dim=-1)
+    dq, dbias = FA.flash_dq_reference(tq, tk, tv, tm, tlse, tdo, dd, window, tb, scale, tt, keep)
+    np.testing.assert_allclose(dq.numpy(), np.asarray(want[0]), atol=ATOL, rtol=ATOL, err_msg="dq")
+    if biased:
+        np.testing.assert_allclose(dbias.numpy(), np.asarray(want[3]), atol=ATOL, rtol=ATOL,
+                                   err_msg="dbias")
+    else:
+        assert dbias is None
 
 
 def test_one_tf32_pass_misses_the_tolerance(monkeypatch):

@@ -1,6 +1,6 @@
-"""The CUDA sources of kernels K2, K6 and K3 (`csrc/flash_local_attention.cu`,
-the dk/dv kernel of `csrc/flash_local_attention_bwd.cu`) compiled for the
-host and run on the CPU against their plain versions.
+"""The CUDA sources of kernels K2, K6 (`csrc/flash_local_attention.cu`), K4,
+K5 and K3 (`csrc/flash_local_attention_bwd.cu`) compiled for the host and run
+on the CPU against their plain versions.
 
 A CUDA kernel has no interpret mode, so this test gives the sources one: a
 small shim maps each CUDA thread to a `std::thread`, `__syncthreads` and the
@@ -247,9 +247,13 @@ def host_dir(tmp_path_factory):
 
 
 @pytest.fixture(scope="module")
-def host_kernels(host_dir):
-    libs = _build(host_dir, (FA.KERNEL, FA.BWD_KERNEL))
-    fwd, bwd = libs[FA.KERNEL], libs[FA.BWD_KERNEL]
+def host_libs(host_dir):
+    return _build(host_dir, (FA.KERNEL, FA.BWD_KERNEL))
+
+
+@pytest.fixture(scope="module")
+def host_kernels(host_libs):
+    fwd, bwd = host_libs[FA.KERNEL], host_libs[FA.BWD_KERNEL]
     k6 = fwd.mts_fused_local_attention_f32
     k6.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     k3 = bwd.mts_flash_local_dkv_f32
@@ -257,6 +261,19 @@ def host_kernels(host_dir):
     for fn in (k6, k3):
         fn.restype = ctypes.c_int
     return _k2(fwd), k6, k3
+
+
+@pytest.fixture(scope="module")
+def host_dq_kernels(host_libs):
+    """K4 (`mts_flash_local_dq_f32`) and K5 (`mts_flash_local_dq_dbias_f32`)."""
+    bwd = host_libs[FA.BWD_KERNEL]
+    k4 = bwd.mts_flash_local_dq_f32
+    k4.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_float] * 2 + [ctypes.c_void_p]
+    k5 = bwd.mts_flash_local_dq_dbias_f32
+    k5.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + [ctypes.c_float] * 2 + [ctypes.c_void_p]
+    for fn in (k4, k5):
+        fn.restype = ctypes.c_int
+    return k4, k5
 
 
 @pytest.fixture(scope="module")
@@ -342,6 +359,53 @@ def test_host_built_kernels_match_plain(host_kernels, L, Dh, window, variant, le
     torch.testing.assert_close(dv, want_dv, atol=1e-4, rtol=1e-4)
 
 
+def _run_dq(k4, k5, q, k, v, do, lse, dd, lens, bias, drop, window, block, scale, keep):
+    """K4, or K5 with a bias tile -> (dq, dbias or None). Outputs and K5's
+    scratch start as NaNs: a row left unwritten, or a scratch entry that the
+    reduce reads but no block stored, shows."""
+    B, H, L, Dh = q.shape
+    half = window // 2
+    sc = 1.0 / math.sqrt(Dh) if scale else 1.0
+    dq = torch.full_like(q, math.nan)
+    common = (_ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse), _ptr(dd), _ptr(lens))
+    if bias is None:
+        assert k4(*common, _ptr(drop), _ptr(dq), B, H, L, Dh, half, block, sc, keep, None) == 0
+        return dq, None
+    partial = torch.full((B, H, -(-L // FA.BWD_TILE), FA.BWD_TILE, 2 * half + 1), math.nan)
+    dbias = torch.full_like(bias, math.nan)
+    assert k5(*common, _ptr(bias), _ptr(drop), _ptr(dq), _ptr(partial), _ptr(dbias), B, H, L, Dh,
+              half, block, sc, keep, None) == 0
+    return dq, dbias
+
+
+@pytest.mark.parametrize("L,Dh,window,variant,lengths", CASES)
+def test_host_built_dq_kernels_match_plain(host_dq_kernels, L, Dh, window, variant, lengths):
+    """K4 (K5 for the biased variants) on every row against
+    `flash_dq_reference`: dq and dbias at atol and rtol 1e-4, dq exactly zero
+    on the rows at or past the length, and a second call bit-identical in
+    dq and dbias (the dbias sum has a fixed order)."""
+    k4, k5 = host_dq_kernels
+    q, k, v, do, mask, lens, bias, drop, scale, keep = _case(L, Dh, window, variant, lengths)
+    block = FA._flash_geometry(L, window // 2)[0]
+    want_o, want_lse = (t.contiguous() for t in FA.flash_local_attention_reference(
+        q, k, v, mask, window, bias, scale, drop, keep))
+    dd = (do * want_o).sum(-1)
+    want_dq, want_dbias = FA.flash_dq_reference(q, k, v, mask, want_lse, do, dd, window, bias,
+                                                scale, drop, keep)
+    args = (q, k, v, do, want_lse, dd, lens, bias, drop, window, block, scale, keep)
+    dq, dbias = _run_dq(k4, k5, *args)
+    torch.testing.assert_close(dq, want_dq, atol=1e-4, rtol=1e-4)
+    for b, n in enumerate(lengths):
+        assert torch.equal(dq[b, :, n:], torch.zeros_like(dq[b, :, n:]))
+    again_dq, again_dbias = _run_dq(k4, k5, *args)
+    assert torch.equal(again_dq, dq)
+    if bias is None:
+        assert again_dbias is None
+        return
+    torch.testing.assert_close(dbias, want_dbias, atol=1e-4, rtol=1e-4)
+    assert torch.equal(again_dbias, dbias)
+
+
 @pytest.mark.parametrize("L,Dh,window,variant,lengths", CASES)
 def test_host_built_k2_without_no_key_shortcuts_matches_plain(host_k2_tile_product, L, Dh, window,
                                                              variant, lengths):
@@ -357,10 +421,12 @@ def test_host_built_k2_without_no_key_shortcuts_matches_plain(host_k2_tile_produ
     torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-4)
 
 
-def test_host_built_kernels_refuse_what_the_card_refuses(host_kernels):
+def test_host_built_kernels_refuse_what_the_card_refuses(host_kernels, host_dq_kernels):
     """A head dim that is no multiple of 4, or a block that is no multiple of
-    8, is refused with cudaErrorInvalidValue before any launch."""
+    8, is refused with cudaErrorInvalidValue before any launch; so is K5
+    without its bias tile, scratch or dbias."""
     k2, _, k3 = host_kernels
+    k4, k5 = host_dq_kernels
     q = torch.zeros(1, 1, 16, 8)
     lens = torch.tensor([16], dtype=torch.int32)
     lse = torch.zeros(1, 1, 16)
@@ -369,3 +435,18 @@ def test_host_built_kernels_refuse_what_the_card_refuses(host_kernels):
     assert k2(*args, 1, 1, 16, 8, 2, 12, 1.0, 1.0, None) != 0
     assert k3(_ptr(q), _ptr(q), _ptr(q), _ptr(q), _ptr(lse), _ptr(lse), _ptr(lens), None, None,
               _ptr(q), _ptr(q), 1, 1, 16, 8, 2, 12, 1.0, 1.0, None) != 0
+    dq_in = (_ptr(q), _ptr(q), _ptr(q), _ptr(q), _ptr(lse), _ptr(lse), _ptr(lens))
+    assert k4(*dq_in, None, _ptr(q), 1, 1, 16, 6, 2, 8, 1.0, 1.0, None) != 0
+    assert k4(*dq_in, None, _ptr(q), 1, 1, 16, 8, 2, 12, 1.0, 1.0, None) != 0
+    bias = torch.zeros(1, 8, 24)
+    partial = torch.zeros(1, 1, 1, 64, 5)
+    dbias = torch.zeros(1, 8, 24)
+    assert k5(*dq_in, _ptr(bias), None, _ptr(q), _ptr(partial), _ptr(dbias), 1, 1, 16, 6, 2, 8,
+              1.0, 1.0, None) != 0
+    assert k5(*dq_in, _ptr(bias), None, _ptr(q), _ptr(partial), _ptr(dbias), 1, 1, 16, 8, 2, 12,
+              1.0, 1.0, None) != 0
+    for missing in range(3):
+        ptrs = [_ptr(bias), _ptr(partial), _ptr(dbias)]
+        ptrs[missing] = None
+        assert k5(*dq_in, ptrs[0], None, _ptr(q), ptrs[1], ptrs[2], 1, 1, 16, 8, 2, 8, 1.0, 1.0,
+                  None) != 0
