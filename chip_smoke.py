@@ -43,7 +43,18 @@ Phases (any failure exits non-zero, and no result line is printed):
    corpus and the predict CLI on the checkpoint it wrote;
 7. the card against the CPU: one 20-unit document's _mean embeddings, each
    long-document tagger's logits on a 400- and a 300-unit document, and each
-   tagger's first-step loss and gradient norm.
+   tagger's first-step loss and gradient norm;
+8. the tagger zoo at the flagship width (embedding 768, h 256, 2 layers, 8
+   heads; FocalLoss for the sigmoid heads, CrossEntropy over 2 tags for the
+   CRFs; Adam 1e-3, dropout 0), with every flash counter set to 0 before it
+   and required at 0 after it: the predict CLI over the ten embedding files
+   for biLSTMCRF, Transformer-CRF, SimpleBiLSTM, MLP, SheikhBiLSTM and
+   BiLSTMLateFusion (-ef2: a second folder of 512-dim units), SwitchBiLSTM
+   refused; one profiled 8 x 3600 decode of each and the CRF loops alone;
+   `Trainer.fit` on the training corpus for each zoo tagger (both Switch
+   modes, BiLSTM with the cosine loss), then `search_threshold` and `test`;
+   the train CLI with its default -arc biLSTMCRF and predict on its
+   checkpoint; each zoo tagger card against CPU.
 
 The line before the last is a JSON object with one entry per kernel; the last
 line is {"ok": true, "device": {...}}. Working files go to build/chip_smoke/.
@@ -532,14 +543,14 @@ def main_path(kernels):
     return launches
 
 
-def write_embeddings(emb_dir, units, seed):
-    """Synthetic precomputed embeddings, one [n, 768] file per document."""
+def write_embeddings(emb_dir, units, seed, dim=768):
+    """Synthetic precomputed embeddings, one [n, dim] file per document."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
     os.makedirs(emb_dir)
     for d, n in enumerate(units):
-        np.save(os.path.join(emb_dir, f"doc{d}.npy"), rng.standard_normal((n, 768)).astype(np.float32))
+        np.save(os.path.join(emb_dir, f"doc{d}.npy"), rng.standard_normal((n, dim)).astype(np.float32))
 
 
 def long_document_path(flash_fwd, fused):
@@ -612,9 +623,11 @@ def long_document_path(flash_fwd, fused):
 
 def profiled(fn):
     """Run fn() under torch.profiler -> (host wall s, device busy s or None,
-    the six costliest device activities). Device busy time is the union of
-    the CUDA activity intervals (kernels and copies), so that overlapping
-    ones are counted once."""
+    the six costliest device kernels as (name, (ns, launches))). Device busy
+    time is the union of the CUDA activity intervals (kernels and copies), so
+    that overlapping ones are counted once. Both are read from the raw
+    profiler events: torch's event tree, which nothing here needs, takes
+    tens of seconds to build for a run of tens of thousands of launches."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -624,22 +637,24 @@ def profiled(fn):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    busy_us, end = 0.0, float("-inf")
-    for a, b in sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                       if e.device_type == DeviceType.CUDA):
-        busy_us += max(0.0, b - max(a, end))
+    device = [e for e in prof.profiler.kineto_results.events() if e.device_type() == DeviceType.CUDA]
+    busy_ns, end, by_name = 0, float("-inf"), {}
+    for e in sorted(device, key=lambda e: e.start_ns()):
+        a, b = e.start_ns(), e.start_ns() + e.duration_ns()
+        busy_ns += max(0, b - max(a, end))
         end = max(end, b)
-    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    top = sorted(events, key=lambda e: -e.self_device_time_total)[:6]
-    return wall, (busy_us / 1e6 if events else None), top
+        ns, n = by_name.get(e.name(), (0, 0))
+        by_name[e.name()] = (ns + e.duration_ns(), n + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
+    return wall, (busy_ns / 1e9 if device else None), top
 
 
 def log_profile(what, wall, busy, top):
     share = (f"device busy {busy:.3f} s ({100 * busy / wall:.1f}% of the wall)" if busy is not None
              else "device time not measured (the profiler recorded no CUDA activity)")
     log(f"[breakdown] {what}: wall {wall:.3f} s, {share}")
-    for e in top:
-        log(f"[breakdown]   {e.self_device_time_total / 1e3:9.2f} ms  {e.count:5d}x  {e.key[:90]}")
+    for name, (ns, n) in top:
+        log(f"[breakdown]   {ns / 1e6:9.2f} ms  {n:5d}x  {name[:90]}")
 
 
 def breakdown_taggers(taggers):
@@ -1011,6 +1026,40 @@ def training_config():
                         attention_window=120, loss_fn="FocalLoss", alpha=0.9, gamma=2.0)
 
 
+def timed_fit(trainer, train_batches):
+    """`trainer.fit(train_batches)` with each step timed by CUDA events.
+    -> (params, history, wall s, steps, step ms: the median of steps 3 on,
+    peak device memory GiB)."""
+    import torch
+
+    step, events = trainer._train_step, []
+
+    def timed(batch):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        loss = step(batch)
+        e1.record()
+        events.append((e0, e1))
+        return loss
+
+    trainer._train_step = timed
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        params, history = trainer.fit(train_batches)
+        torch.cuda.synchronize()
+    finally:
+        # back to the class's method: a bound method kept on its own instance
+        # is a reference cycle, which would keep this trainer's device memory
+        # until the garbage collector next runs, inside the next fit's peak
+        del trainer._train_step
+    wall = time.perf_counter() - t0
+    times = sorted(e0.elapsed_time(e1) for e0, e1 in events[2:])
+    return (params, history, wall, len(events), times[len(times) // 2],
+            torch.cuda.max_memory_allocated() / 2**30)
+
+
 def training_path(docs):
     """`Trainer.fit` at full width for each tagger over the ten-document
     corpus in one batch of 10 x 3600 units, then `search_threshold` and
@@ -1029,32 +1078,11 @@ def training_path(docs):
         trainer = Trainer(arch, training_config(), lr=1e-3, optimizer="Adam",
                           max_epochs=TRAIN_EPOCHS, no_early_stop=True, monitor="training_loss",
                           check_dir=os.path.join(WORK, f"train_{arch}"), seed=0, device="cuda")
-        step, events = trainer._train_step, []
-
-        def timed(batch):
-            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            e0.record()
-            loss = step(batch)
-            e1.record()
-            events.append((e0, e1))
-            return loss
-
-        trainer._train_step = timed
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
         for c in counters.values():
             c.launches = 0
-        t0 = time.perf_counter()
-        params, history = trainer.fit(train_batches)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        params, history, wall, steps, step_ms, peak = timed_fit(trainer, train_batches)
         launches = {name: c.launches for name, c in counters.items()}
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        trainer._train_step = step
-
-        steps = len(events)
-        times = sorted(e0.elapsed_time(e1) for e0, e1 in events[2:])
-        step_ms = times[len(times) // 2]
+        step = trainer._train_step
         remat = [m.last_remat for m in trainer.tagger.modules()
                  if isinstance(m, (TT.BertStyleEncoder, TT.LongT5Encoder))]
         fwd, dq, dqb, dkv = STEP_LAUNCHES[arch]
@@ -1090,7 +1118,7 @@ def training_path(docs):
         log_profile(f"{arch} train step of 10 x 3600 units", *profiled(lambda: step(batch)))
         log(f"[train] {arch}: the profiled step with the profiler's set-up and read-out took "
             f"{time.perf_counter() - t0:.3f} s of this phase")
-        del trainer, batch
+        del trainer, batch, step
         torch.cuda.empty_cache()
     return total
 
@@ -1247,6 +1275,338 @@ def training_card_vs_cpu(docs):
             raise RuntimeError(f"{arch}: card and cpu disagree on the first step: {got}")
 
 
+# -- the tagger zoo ----------------------------------------------------------------------
+
+# the taggers that predict serves (SwitchBiLSTM needs domain ids and is refused)
+ZOO_PREDICT = ("biLSTMCRF", "Transformer-CRF", "SimpleBiLSTM", "MLP", "SheikhBiLSTM",
+               "BiLSTMLateFusion")
+# the taggers trained: (label, architecture, config fields)
+ZOO_TRAIN = (("biLSTMCRF", "biLSTMCRF", {}), ("Transformer-CRF", "Transformer-CRF", {}),
+             ("BiLSTMLateFusion", "BiLSTMLateFusion", {}), ("SimpleBiLSTM", "SimpleBiLSTM", {}),
+             ("MLP", "MLP", {}), ("SheikhBiLSTM", "SheikhBiLSTM", {}),
+             ("SwitchBiLSTM dense", "SwitchBiLSTM", {"switch": "dense"}),
+             ("SwitchBiLSTM lstm", "SwitchBiLSTM", {"switch": "lstm"}),
+             ("BiLSTM -cos", "BiLSTM", {"cosine_loss": True}))
+ZOO_EPOCHS = 10  # steps per zoo fit: Adam at 1e-3 is back under its first loss by then
+SECOND_DIM = 512  # the late-fusion tagger's second modality: openl3 units
+
+
+def zoo_config(architecture, **fields):
+    """The flagship width for a zoo tagger: FocalLoss (alpha .9, gamma 2) on the
+    sigmoid heads, CrossEntropy over 2 tags for the CRFs, a 512-dim second
+    modality for late fusion, dropout 0."""
+    import dataclasses
+
+    loss_fn = "CrossEntropy" if architecture.endswith("CRF") else "FocalLoss"
+    return dataclasses.replace(training_config(), loss_fn=loss_fn, embedding_dim2=SECOND_DIM,
+                               **fields)
+
+
+def zoo_predict():
+    """The predict CLI on cuda over the ten long-document embedding files for
+    each tagger of ZOO_PREDICT from a random checkpoint (seed 0), late fusion
+    with -ef2 over a second folder of 512-dim units with the same unit counts;
+    then SwitchBiLSTM, which predict must refuse. -> {architecture: tagger}"""
+    import pickle
+
+    import torch
+
+    from multimodaltopicsegmentation_torch.cli.predict import cli_main
+    from multimodaltopicsegmentation_torch.models import registry
+    from multimodaltopicsegmentation_torch.train import checkpoints
+
+    emb, emb_warm = os.path.join(WORK, "long_emb"), os.path.join(WORK, "long_emb_warm")
+    emb2, emb2_warm = os.path.join(WORK, "long_emb_openl3"), os.path.join(WORK, "long_emb_openl3_warm")
+    write_embeddings(emb2, DOC_UNITS, seed=5, dim=SECOND_DIM)
+    write_embeddings(emb2_warm, (100, 70), seed=6, dim=SECOND_DIM)
+
+    def checkpoint(arch):
+        cfg = zoo_config(arch)
+        tagger = registry.build(arch, cfg, torch.Generator().manual_seed(0)).eval()
+        ckpt = os.path.join(WORK, f"ckpt_zoo_{arch}", "best_model")
+        hyp = os.path.join(WORK, f"results_zoo_{arch}.txt")
+        checkpoints.save(ckpt, tagger.to_jax_params(), cfg, arch)
+        second = "Second sentence encoder: openl3\n" if arch == "BiLSTMLateFusion" else ""
+        with open(hyp, "w") as f:
+            f.write(f"Sentence encoder: wav2vec_mean\n{second}Neural architecture: {arch}\n")
+        return tagger, ["-hyp", hyp, "-model", ckpt, "-bs", "8", "-rjs", "--device", "cuda"]
+
+    taggers = {}
+    for arch in ZOO_PREDICT:
+        tagger, common = checkpoint(arch)
+        double = arch == "BiLSTMLateFusion"
+        cli_main(common + ["-ef", emb_warm, "-exp", os.path.join(WORK, f"exp_zoo_warm_{arch}")]
+                 + (["-ef2", emb2_warm] if double else []))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        exp = os.path.join(WORK, f"exp_zoo_{arch}")
+        cli_main(common + ["-ef", emb, "-exp", exp] + (["-ef2", emb2] if double else []))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        with open(os.path.join(exp, "results.pkl"), "rb") as f:
+            results = pickle.load(f)
+        for d, units in enumerate(DOC_UNITS):
+            tags = results.get(f"doc{d}.npy")
+            if tags is None or len(tags) != units or set(tags) - {0, 1}:
+                raise RuntimeError(f"{arch}: doc{d} got {None if tags is None else len(tags)} "
+                                   f"tags for {units} units")
+        found = sum(sum(t) for t in results.values())
+        log(f"[zoo predict] {arch}: predict on cuda, {len(DOC_UNITS)} documents, {sum(DOC_UNITS)} "
+            f"units in {wall:.3f} s = {sum(DOC_UNITS) / wall:.0f} units/s (checkpoint load + "
+            f"decode); {found} boundaries; peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        taggers[arch] = tagger
+
+    _, common = checkpoint("SwitchBiLSTM")
+    try:
+        cli_main(common + ["-ef", emb, "-exp", os.path.join(WORK, "exp_zoo_SwitchBiLSTM")])
+    except NotImplementedError as e:
+        if "domain ids" not in str(e):
+            raise
+        log(f"[zoo predict] SwitchBiLSTM: refused by predict ({e})")
+    else:
+        raise RuntimeError("predict served a SwitchBiLSTM checkpoint")
+    return taggers
+
+
+def zoo_breakdown(taggers):
+    """One profiled decode of 8 documents padded to 3600 units per zoo tagger,
+    then each CRF's loops alone on its emission width: Viterbi, the forward
+    algorithm, and the loss with its backward (CUDA events, host gaps
+    included: both loops are host-bound)."""
+    import numpy as np
+    import torch
+
+    from multimodaltopicsegmentation_torch.ops import crf as crf_lib
+    from multimodaltopicsegmentation_torch.ops.masks import length_mask
+
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.standard_normal((8, 3600, 768)).astype(np.float32)).cuda()
+    x2 = torch.from_numpy(rng.standard_normal((8, 3600, SECOND_DIM)).astype(np.float32)).cuda()
+    lengths = torch.tensor(DOC_UNITS[:8], device="cuda")
+    for arch, tagger in taggers.items():
+        tagger = tagger.cuda()
+        kw = {"x2": x2} if arch == "BiLSTMLateFusion" else {}
+        with torch.inference_mode():
+            tagger.decode(x, lengths, 0.5, **kw)  # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            wall, busy, top = profiled(lambda: tagger.decode(x, lengths, 0.5, **kw))
+        log_profile(f"{arch} decode of 8 x 3600 units (peak device memory "
+                    f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB)", wall, busy, top)
+        if arch.endswith("CRF"):
+            width = tagger.crf.fc.in_features
+            h = torch.from_numpy(rng.standard_normal((8, 3600, width)).astype(np.float32)).cuda()
+            mask = length_mask(lengths, 3600)
+            tags = torch.from_numpy((rng.random((8, 3600)) < 0.05).astype(np.int64)).cuda()
+            with torch.inference_mode():
+                emissions = tagger.crf.fc(h)
+                viterbi_ms = time_ms(lambda: crf_lib.viterbi_decode(tagger.crf, h, mask), 2, 1)
+                forward_ms = time_ms(lambda: crf_lib.forward_algorithm(
+                    tagger.crf.transitions, emissions, mask), 2, 1)
+            loss_ms = time_ms(lambda: crf_lib.crf_loss(tagger.crf, h, tags, mask).backward(), 2, 1)
+            tagger.zero_grad(set_to_none=True)
+            log(f"[zoo crf] {arch}: CRF over [8, 3600, {width}] features, lengths "
+                f"{list(DOC_UNITS[:8])}: viterbi_decode {viterbi_ms:.3f} ms, forward_algorithm "
+                f"{forward_ms:.3f} ms, crf_loss forward + backward {loss_ms:.3f} ms (CUDA events)")
+        tagger.cpu()
+
+
+def zoo_training(docs):
+    """`Trainer.fit` at the flagship width for each tagger of ZOO_TRAIN over
+    the training corpus in one batch of 10 x 3600 units, ZOO_EPOCHS steps,
+    then `search_threshold` and `test`. SwitchBiLSTM's documents alternate
+    between the two domains; late fusion's second modality is 512-dim units
+    drawn from seed 1 at the same unit counts."""
+    import numpy as np
+    import torch
+
+    from multimodaltopicsegmentation_torch.train.data import batches
+    from multimodaltopicsegmentation_torch.train.loop import Trainer
+
+    rng = np.random.default_rng(1)
+    second = [(rng.standard_normal((len(e), SECOND_DIM)).astype(np.float32), lab, name)
+              for e, lab, name in docs]
+    # a file name that starts with a digit is domain 1
+    switched = [(e, lab, f"{d % 2}{name}") for d, (e, lab, name) in enumerate(docs)]
+    for label, arch, fields in ZOO_TRAIN:
+        crf = arch.endswith("CRF")
+        pad = dict(crf=crf, truncate=True, truncate_value=3600)
+        if arch == "SwitchBiLSTM":
+            train_batches = list(batches(switched, 10, domain_adapt=True, **pad))
+        else:
+            train_batches = list(batches(docs, 10, **pad))
+        if arch == "BiLSTMLateFusion":
+            for b, b2 in zip(train_batches, batches(second, 10, **pad)):
+                b["src_tokens2"] = b2["src_tokens"]
+        units = int(sum(b["src_lengths"].sum() for b in train_batches))
+        trainer = Trainer(arch, zoo_config(arch, **fields), lr=1e-3, optimizer="Adam",
+                          max_epochs=ZOO_EPOCHS, no_early_stop=True, monitor="training_loss",
+                          check_dir=os.path.join(WORK, f"train_zoo_{label.replace(' ', '_')}"),
+                          seed=0, device="cuda")
+        params, history, wall, steps, step_ms, peak = timed_fit(trainer, train_batches)
+        losses = [h["training_loss"] for h in history]
+        if not (all(map(math.isfinite, losses)) and losses[-1] < losses[0]):
+            raise RuntimeError(f"{label}: the training loss did not fall: {losses}")
+        if not os.path.exists(trainer.best_model_path):
+            raise RuntimeError(f"{label}: no snapshot at {trainer.best_model_path}")
+        th, th_val = trainer.search_threshold(params, train_batches)
+        trainer.threshold = th
+        results, per_doc, scores = trainer.test(params, train_batches)
+        if len(per_doc) != len(docs) or not all(math.isfinite(v) for v in results.values()):
+            raise RuntimeError(f"{label}: test gave {len(per_doc)} documents, results {results}")
+        if crf and not (th == 0.5 and math.isnan(th_val) and all(s.shape == (1,) for s in scores)):
+            raise RuntimeError(f"{label}: search_threshold gave {(th, th_val)}, scores of shapes "
+                               f"{[s.shape for s in scores]}; a CRF gives (0.5, nan) and one "
+                               "Viterbi score per document")
+        log(f"[zoo train] {label}: fit of {steps} steps of 10 x 3600 ({units} units) in {wall:.3f} s; "
+            f"step {step_ms:.3f} ms (CUDA events, median of steps 3-{steps}) = "
+            f"{units / step_ms * 1e3:.0f} units/s; loss {losses[0]:.5f} -> {losses[-1]:.5f}; peak "
+            f"device memory {peak:.2f} GiB; search_threshold {th} ({th_val:.4f}); test Pk "
+            f"{results['test_loss']:.4f} F1 {results['F1_loss']:.4f} WD {results['WD_loss']:.4f}")
+        del trainer
+        torch.cuda.empty_cache()
+
+
+def zoo_train_cli(emb_dir, labs_file, split_file):
+    """The train CLI on cuda with its default architecture (biLSTMCRF) for 2
+    epochs at the flagship width, then the predict CLI on its checkpoint."""
+    import pickle
+
+    import torch
+
+    from multimodaltopicsegmentation_torch.cli import predict, train_fit
+
+    exp = os.path.join(WORK, "exp_zoo_train_cli")
+    cwd = os.getcwd()
+    t0 = time.perf_counter()
+    try:
+        train_fit.cli_main([
+            "-exp", exp, "-enc", "wav2vec", "-ef", emb_dir, "-lf", labs_file, "-lr", "1e-3",
+            "-hu", "256", "-nl", "2", "-bs", "10", "-max", "2", "-pat", "2", "-split", split_file,
+            "-ar", "-as", "--device", "cuda"])
+    finally:
+        os.chdir(cwd)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with open(os.path.join(exp, "results.txt")) as f:
+        txt = f.read()
+    best = os.path.join(exp, "checkpoints", "best_model")
+    if ("Neural architecture: biLSTMCRF" not in txt or "Mean Pk obtained is" not in txt
+            or not os.path.exists(best)):
+        raise RuntimeError(f"train_fit with its default architecture wrote no biLSTMCRF result "
+                           f"under {exp}")
+    out = os.path.join(WORK, "exp_zoo_train_predict")
+    predict.cli_main(["-ef", emb_dir, "-hyp", os.path.join(exp, "results.txt"), "-model", best,
+                      "-exp", out, "-bs", "8", "-rjs", "--device", "cuda"])
+    with open(os.path.join(out, "results.pkl"), "rb") as f:
+        results = pickle.load(f)
+    for d, n in enumerate(TRAIN_UNITS):
+        tags = results.get(f"doc{d}.npy")
+        if tags is None or len(tags) != n or set(tags) - {0, 1}:
+            raise RuntimeError(f"predict on the biLSTMCRF checkpoint: doc{d} got "
+                               f"{None if tags is None else len(tags)} tags for {n} units")
+    pk = [ln for ln in txt.splitlines() if ln.startswith("Mean Pk")][0]
+    log(f"[zoo train cli] train_fit (default -arc biLSTMCRF) on cuda, 2 epochs of 7 documents + "
+        f"test in {wall:.3f} s; {pk}; predict served the checkpoint: {len(results)} documents")
+
+
+def zoo_card_vs_cpu():
+    """Each zoo tagger (seed 0) on a 400- and a 300-unit document, padded to
+    512 units as predict buckets them, on cuda and on the cpu: logits (a
+    CRF's Viterbi scores) and tags on the valid units, then the first-step
+    loss and gradient norm against labels with about 5 % boundaries. Values
+    agree within 1e-3 + 1e-5 |cpu value|: a CRF's loss and scores sum over
+    the units (10^2-10^3 here, where a float32 ulp is 10^-5-10^-4), and
+    Transformer-CRF's gradient norm reaches some 2000."""
+    import numpy as np
+    import torch
+
+    from multimodaltopicsegmentation_torch.models import registry
+    from multimodaltopicsegmentation_torch.train.data import pad_batch
+
+    names = ("doc7.npy", "doc9.npy")
+    failed = []
+    for label, arch, fields in ZOO_TRAIN:
+        crf = arch.endswith("CRF")
+
+        def padded(folder):
+            docs = []
+            for name in names:
+                e = np.load(os.path.join(WORK, folder, name))
+                lab = (np.random.default_rng(len(e)).random(len(e)) < 0.05).astype(int).tolist()
+                docs.append((e, lab, ("1" if name == names[0] else "") + name))
+            return pad_batch(docs, crf=crf, bucket=True, domain_adapt=True)
+
+        batch, batch2 = padded("long_emb"), padded("long_emb_openl3")
+        lengths = batch["src_lengths"].tolist()
+        got = {}
+        for device in ("cuda", "cpu"):
+            x, n, tags, dom = (torch.from_numpy(batch[k]).to(device)
+                               for k in ("src_tokens", "src_lengths", "tgt_tokens", "domain"))
+            x2 = torch.from_numpy(batch2["src_tokens"]).to(device)
+            tagger = registry.build(arch, zoo_config(arch, **fields),
+                                    torch.Generator().manual_seed(0)).to(device)
+            if arch == "SwitchBiLSTM":
+                decode = lambda: tagger.decode(x, n, dom, 0.5)  # noqa: E731
+                loss = lambda: tagger.loss(x, n, tags, dom)  # noqa: E731
+            elif arch == "BiLSTMLateFusion":
+                decode = lambda: tagger.decode(x, n, 0.5, x2=x2)  # noqa: E731
+                loss = lambda: tagger.loss(x, n, tags, x2=x2)  # noqa: E731
+            else:
+                decode = lambda: tagger.decode(x, n, 0.5)  # noqa: E731
+                loss = lambda: tagger.loss(x, n, tags)  # noqa: E731
+            with torch.inference_mode():
+                scores, decoded = (t.cpu() for t in decode())
+            value = loss()
+            value.backward()
+            norm = torch.sqrt(sum((p.grad * p.grad).sum() for p in tagger.parameters()))
+            if crf:  # one Viterbi score per document, tags on the valid units
+                kept = scores
+            else:
+                kept = torch.cat([scores[b, :m].reshape(-1) for b, m in enumerate(lengths)])
+            got[device] = (kept, [decoded[b, :m] for b, m in enumerate(lengths)], value.item(),
+                           norm.item())
+        (s0, t0, l0, n0), (s1, t1, l1, n1) = got["cuda"], got["cpu"]
+        err = (s0 - s1).abs().max().item()
+        close = (torch.isfinite(s0).all() and ((s0 - s1).abs() <= 1e-3 + 1e-5 * s1.abs()).all()
+                 and abs(l0 - l1) <= 1e-3 + 1e-5 * abs(l1) and abs(n0 - n1) <= 1e-3 + 1e-5 * abs(n1))
+        same = all(torch.equal(a, b) for a, b in zip(t0, t1))
+        log(f"[zoo card vs cpu] {label}, {lengths} units padded to {batch['src_tokens'].shape[1]}: "
+            f"{'Viterbi scores' if crf else 'logits'} max_abs_err {err:.3e}, tags "
+            f"{'identical' if same else 'DIFFER'}; first step loss {l0:.6f} on the card, "
+            f"{abs(l0 - l1):.3e} from the cpu's; gradient norm {n0:.6f}, {abs(n0 - n1):.3e} from "
+            f"the cpu's (atol 1e-3 + rtol 1e-5)")
+        if not (close and same):
+            failed.append(label)
+    if failed:
+        raise RuntimeError(f"card and cpu disagree for {failed}")
+
+
+def zoo_phase(docs, emb_dir, labs_file, split_file):
+    """Phase 8, with every flash counter at 0 before it and after it."""
+    from multimodaltopicsegmentation_torch.ops import flash_attention as FA
+
+    counters = {**flash_counters(), "fused_local_attention": FA.fused_local_attention}
+    for c in counters.values():
+        c.launches = 0
+    t = time.perf_counter()
+    taggers = zoo_predict()
+    for what, run in (("predict", None), ("breakdown", lambda: zoo_breakdown(taggers)),
+                      ("training", lambda: zoo_training(docs)),
+                      ("train cli", lambda: zoo_train_cli(emb_dir, labs_file, split_file)),
+                      ("card vs cpu", zoo_card_vs_cpu)):
+        if run is not None:
+            run()
+        log(f"[zoo] {what}: {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+    launches = {name: c.launches for name, c in counters.items()}
+    if any(launches.values()):
+        raise RuntimeError(f"the tagger zoo reached a flash kernel: {launches}")
+    log(f"[zoo] flash launches over the phase: {launches}")
+
+
 def main() -> int:
     import torch
 
@@ -1309,6 +1669,9 @@ def main() -> int:
     taggers_card_vs_cpu(taggers)
     training_card_vs_cpu(docs)
     log(f"[phase] card vs cpu: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    zoo_phase(docs, emb_dir, labs_file, split_file)
+    log(f"[phase] tagger zoo: {time.perf_counter() - t:.1f} s")
 
     for name, r in results.items():
         r["launches"] = launches[name]

@@ -7,9 +7,16 @@ in-process (uniform 1-second units), decode every document on the device,
 convert boundary vectors to sample spans (`segment_audio`) and write
 per-segment wavs with +-1 s overlap and `results.pkl`.
 
+Every architecture of the registry decodes through the same loop; a CRF
+tagger's tags are its Viterbi paths. A late-fusion checkpoint also reads the
+second modality's embeddings (`-ef2`, default `<ef>_enc2`: the same file
+names and unit counts), whose encoder the training `results.txt` names on
+its `Second sentence encoder` line. SwitchBiLSTM is refused: predict has no
+per-document domain ids.
+
 Run: python -m multimodaltopicsegmentation_torch.cli.predict -ee -ef <emb dir>
        -hyp results.txt -model <checkpoint> -exp <out dir> -af <wav dir>
-       [--device cpu]
+       [-ef2 <second emb dir>] [--device cpu]
 """
 from __future__ import annotations
 
@@ -91,14 +98,25 @@ class Predictor(BasePredictor):
     def __init__(self, hyperparameter_file, best_model_path, adaptive_uniform_interval=False,
                  uniform_interval=1, original_audio_extension=".wav", threshold=0.5, sr=16000,
                  device="cuda"):
-        self.encoder = None
+        self.encoder = self.encoder2 = None
         with open(hyperparameter_file) as f:
             for line in f.readlines():
                 if line.startswith("Sentence encoder"):
                     self.encoder = line.split()[2]
+                elif line.startswith("Second sentence encoder"):
+                    self.encoder2 = line.split()[3]
         self.device = resolve_device(device)
 
         params, cfg, arch_name, _ = ckpt_lib.load(best_model_path)
+        if registry.is_domain_adapt(arch_name):
+            raise NotImplementedError(
+                f"predict does not support architecture {arch_name!r}: it needs per-document "
+                "domain ids that the raw-audio predict pipeline cannot provide")
+        self.double = registry.is_double_input(arch_name)
+        if self.double and self.encoder2 is None:
+            raise ValueError(
+                f"architecture {arch_name!r} needs a second modality but {hyperparameter_file!r} "
+                "has no 'Second sentence encoder' line (train with train_fit -enc2 to record it)")
         self.cfg = cfg
         self.arch = registry.build(arch_name, cfg)
         self.arch.load_state_dict(type(self.arch).from_jax_params(params))
@@ -111,7 +129,8 @@ class Predictor(BasePredictor):
         self.sr = sr
 
     def predict(self, embedding_folder, experiment_name, write_audio_segments=True,
-                audio_directory=None, batch_size=8, verbose=False, add_overlap=1):
+                audio_directory=None, batch_size=8, verbose=False, add_overlap=1,
+                embedding_folder2=None):
         if os.path.exists(experiment_name):
             raise ValueError(
                 "The name of this experiment has already been used: please "
@@ -122,18 +141,26 @@ class Predictor(BasePredictor):
         embeddings, file_names = load_dataset_for_inference_with_names(embedding_folder)
         if verbose:
             print(f"Segmenting the following files:\n{file_names}")
+        docs2 = None
+        if self.double:
+            docs2 = self._second_modality(embedding_folder, embedding_folder2, embeddings,
+                                          file_names)
 
         results = []
         docs = [(e, [0] * len(e), n) for e, n in zip(embeddings, file_names)]
         for i in range(0, len(docs), batch_size):
             chunk = docs[i : i + batch_size]
             batch = pad_batch(chunk, crf=False, bucket=True)
+            x, lengths = (torch.from_numpy(batch[k]).to(self.device)
+                          for k in ("src_tokens", "src_lengths"))
             with torch.inference_mode():
-                _, tags = self.arch.decode(
-                    torch.from_numpy(batch["src_tokens"]).to(self.device),
-                    torch.from_numpy(batch["src_lengths"]).to(self.device),
-                    self.th,
-                )
+                if self.double:
+                    # the same pad_batch arguments: both modalities pad to one length
+                    x2 = pad_batch(docs2[i : i + batch_size], crf=False, bucket=True)["src_tokens"]
+                    _, tags = self.arch.decode(x, lengths, self.th,
+                                               x2=torch.from_numpy(x2).to(self.device))
+                else:
+                    _, tags = self.arch.decode(x, lengths, self.th)
             tags = tags.cpu().numpy()
             for j in range(len(chunk)):
                 L = int(batch["src_lengths"][j])
@@ -167,6 +194,25 @@ class Predictor(BasePredictor):
             pickle.dump(dict(zip(file_names, results)), f)
         return results
 
+    @staticmethod
+    def _second_modality(embedding_folder, embedding_folder2, embeddings, file_names):
+        """The late-fusion tagger's second modality as documents, checked to
+        hold the same files with the same unit counts as the first (the two
+        streams share one length vector)."""
+        if embedding_folder2 is None:
+            raise ValueError("late-fusion predict needs the second modality's embedding folder "
+                             "(-ef2)")
+        embeddings2, names2 = load_dataset_for_inference_with_names(embedding_folder2)
+        if names2 != file_names:
+            raise ValueError(f"second-modality folder {embedding_folder2!r} does not hold the same "
+                             f"documents as {embedding_folder!r}")
+        for e1, e2, name in zip(embeddings, embeddings2, file_names):
+            if len(e1) != len(e2):
+                raise ValueError(f"{name}: {len(e1)} units in {embedding_folder!r} vs {len(e2)} "
+                                 f"in {embedding_folder2!r}; extract both modalities with the "
+                                 "same unitization")
+        return [(e, [0] * len(e), n) for e, n in zip(embeddings2, file_names)]
+
 
 class MyParser(argparse.ArgumentParser):
     def error(self, message):
@@ -179,6 +225,8 @@ def build_parser():
     parser = MyParser(description="Raw audio -> topic segments inference")
     parser.add_argument("--extract_embeddings", "-ee", action="store_true")
     parser.add_argument("--embedding_folder", "-ef", type=str, required=True)
+    # the second modality of a late-fusion checkpoint; default <embedding_folder>_enc2
+    parser.add_argument("--embedding_folder2", "-ef2", type=str, default=None)
     parser.add_argument("--hyperparameter_file", "-hyp", type=str)
     parser.add_argument("--best_model_path", "-model", type=str)
     parser.add_argument("--experiment_name", "-exp", default="new_experiment", type=str)
@@ -205,14 +253,19 @@ def cli_main(argv=None):
         original_audio_extension=args.audio_extension,
         device=args.device,
     )
+    if predictor.double and args.embedding_folder2 is None:
+        args.embedding_folder2 = args.embedding_folder.rstrip("/\\") + "_enc2"
     if args.extract_embeddings:
-        enc = predictor.encoder
-        predictor.create_embeddings(enc, args.audio_folder, args.embedding_folder,
-                                    args.uniform_interval, args.adaptive_uniform,
-                                    args.verbose, True)
-        pooling_idx = enc.find("_")
-        if pooling_idx > -1:
-            args.embedding_folder = os.path.join(args.embedding_folder, enc[pooling_idx:])
+        streams = [(predictor.encoder, "embedding_folder")]
+        if predictor.double:
+            streams.append((predictor.encoder2, "embedding_folder2"))
+        for enc, attr in streams:
+            folder = getattr(args, attr)
+            predictor.create_embeddings(enc, args.audio_folder, folder, args.uniform_interval,
+                                        args.adaptive_uniform, args.verbose, True)
+            pooling_idx = enc.find("_")
+            if pooling_idx > -1:
+                setattr(args, attr, os.path.join(folder, enc[pooling_idx:]))
     return predictor.predict(
         args.embedding_folder,
         args.experiment_name,
@@ -220,6 +273,7 @@ def cli_main(argv=None):
         audio_directory=args.audio_folder,
         batch_size=args.batch_size,
         verbose=args.verbose,
+        embedding_folder2=args.embedding_folder2,
     )
 
 

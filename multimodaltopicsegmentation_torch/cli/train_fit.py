@@ -11,11 +11,15 @@ Checkpoints are written in the JAX package's pickle format, which both
 packages' predict CLIs read. `--device` picks the device (default `cuda`,
 which raises without a card; `cpu` runs the same code on the CPU).
 
+Every architecture name of the JAX registry trains, late fusion with its
+second modality (`-arc BiLSTMLateFusion -enc2 <encoder> -ef2 <folder>`, the
+same documents and unit counts as `-ef`) and SwitchBiLSTM with each
+document's domain flag (a file name that starts with a digit is domain 1).
+
 Not ported yet, refused by name when asked for: --parallel_grid,
 --device_epochs, --pipeline_stages, --sequence_shards, --expert_parallel on
 (ROADMAP.md section 1 items 13 and 14), --pca_reduce, --infer,
---both_datasets, --zero_shot_labels, and the architectures the registry does
-not build (late fusion among them; item 10).
+--both_datasets, --zero_shot_labels.
 """
 from __future__ import annotations
 
@@ -82,18 +86,25 @@ def _resolve_monitored(val_loss: float) -> float:
     return val_loss
 
 
-def infer_embedding_dim(encoder: str, timing_file=None):
-    """The reference's dimension inference, '+' early-fusion sums included."""
-    if re.findall("sentence", encoder.lower()):
-        encs = ["/".join(e.split("/")[1:]) for e in encoder.split("+")]
-    else:
-        encs = encoder.split("+")
-    try:
-        dim = sum(EMBEDDING_SIZES[e] for e in encs)
-    except KeyError:
-        raise ValueError("Encoder not recognised, use one of the available options "
-                         "(x-vectors, openl3, mfcc, prosodic, CREPE, ecapa or wav2vec)")
-    return dim + 2 if timing_file is not None else dim
+def infer_embedding_dim(encoder: str, encoder2=None, timing_file=None):
+    """The reference's dimension inference, '+' early-fusion sums included;
+    with `encoder2`, [dim, dim2]. A timing file adds 2 to each."""
+
+    def one(enc_string):
+        if re.findall("sentence", enc_string.lower()):
+            encs = ["/".join(e.split("/")[1:]) for e in enc_string.split("+")]
+        else:
+            encs = enc_string.split("+")
+        try:
+            return sum(EMBEDDING_SIZES[e] for e in encs)
+        except KeyError:
+            raise ValueError("Encoder not recognised, use one of the available options "
+                             "(x-vectors, openl3, mfcc, prosodic, CREPE, ecapa or wav2vec)")
+
+    extra = 2 if timing_file is not None else 0
+    if encoder2 is not None:
+        return [one(encoder) + extra, one(encoder2) + extra]
+    return one(encoder) + extra
 
 
 def _write_grid_csv(path: str, grid: dict):
@@ -110,9 +121,9 @@ def main(args):
         if asked(getattr(args, name, None)):
             raise SystemExit(f"--{name} is not ported yet ({where})")
     device = resolve_device(args.device)
-    # an unported architecture fails here, before the experiment folder exists
-    registry.build(args.architecture, TaggerConfig(embedding_dim=8, hidden_dim=8, num_layers=1,
-                                                   nheads=2, attention_window=4))
+    # an unknown architecture fails here, before the experiment folder exists
+    registry.build(args.architecture, TaggerConfig(embedding_dim=8, embedding_dim2=8, hidden_dim=8,
+                                                   num_layers=1, nheads=2, attention_window=4))
 
     assert not os.path.exists(args.experiment_name), (
         "The name of this experiment has already been used: please change "
@@ -130,39 +141,59 @@ def main(args):
         split=args.standard_split,
         timing_info=args.timing_file,
     )
+    double = registry.is_double_input(args.architecture)
+    if double:
+        # the second modality: the same documents, labels and folds
+        folds2 = load_dataset_from_precomputed(
+            args.embedding_folder2,
+            args.lab_folder,
+            delete_last_sentence=args.delete_last_sentence,
+            k_folds=args.k_folds,
+            mask_inner_sentences=args.mask_inner_sentences,
+            mask_probability=args.mask_probability,
+            split=args.standard_split,
+        )
     val_folder = args.standard_split is not None
     os.chdir(args.experiment_name)
 
     CRF = registry.is_crf(args.architecture)
+    domain_adapt = registry.is_domain_adapt(args.architecture)
     if args.architecture in ("Transformer", "BiLSTMRestrictedMHA", "RecurrentLongformer"):
         truncate, tv = True, 3600  # the reference's fixed unit budget for these
     else:
         truncate, tv = False, 100
 
     # assemble per-fold batch lists
-    fold_loaders = []
-    for fold in folds:
+    def split_fold(fold):
         valid_split = int(len(fold[0]) * args.valid_percentage)
         if args.no_validation or val_folder:
-            train_docs = fold[0]
-            valid_docs = fold[2] if (val_folder and not args.no_validation) else None
-        else:
-            train_docs = fold[0][:-valid_split]
-            valid_docs = fold[0][-valid_split:]
-        test_docs = fold[1]
+            valid = fold[2] if (val_folder and not args.no_validation) else None
+            return fold[0], valid, fold[1]
+        return fold[0][:-valid_split], fold[0][-valid_split:], fold[1]
 
-        def make_batches(docs, bs):
-            if not docs:
-                return None
-            return list(batches(docs, max(bs, 1), crf=CRF, truncate=truncate, truncate_value=tv))
+    def make_batches(docs, docs2, bs):
+        if not docs:
+            return None
+        bl = list(batches(docs, max(bs, 1), crf=CRF, truncate=truncate, truncate_value=tv,
+                          domain_adapt=domain_adapt))
+        if docs2 is not None:
+            # the second modality's batches, padded alike, ride along
+            bl2 = batches(docs2, max(bs, 1), crf=CRF, truncate=truncate, truncate_value=tv)
+            for b, b2 in zip(bl, bl2):
+                b["src_tokens2"] = b2["src_tokens"]
+        return bl
 
+    fold_loaders = []
+    for index, fold in enumerate(folds):
+        train_docs, valid_docs, test_docs = split_fold(fold)
+        train2, valid2, test2 = split_fold(folds2[index]) if double else (None, None, None)
         bs = args.batch_size
-        test_batches = make_batches(test_docs, 1)
+        test_batches = make_batches(test_docs, test2, 1)
         if not test_batches:
             raise ValueError("There is something wrong with the test loader...")
         fold_loaders.append((
-            make_batches(train_docs, min(bs, len(train_docs))),
-            make_batches(valid_docs, min(bs, len(valid_docs)) if valid_docs else bs),
+            make_batches(train_docs, train2, min(bs, len(train_docs))),
+            make_batches(valid_docs, valid2, min(bs, len(valid_docs)) if valid_docs else bs),
             test_batches,
             fold,
         ))
@@ -196,7 +227,9 @@ def main(args):
     with open("logs", "w") as f:
         f.write("Training started all right...\n")
 
-    embedding_dim = infer_embedding_dim(args.encoder, args.timing_file)
+    embedding_dim = infer_embedding_dim(args.encoder, args.encoder2 if double else None,
+                                        args.timing_file)
+    emb_dim, emb_dim2 = embedding_dim if double else (embedding_dim, 0)
 
     monitor = "training_loss" if args.no_validation else "val_loss"
     best_results = {"F1": 0, "Pk": 1, "WD": 1}
@@ -222,7 +255,8 @@ def main(args):
             os.makedirs(check_dir, exist_ok=True)
 
             cfg = TaggerConfig(
-                embedding_dim=embedding_dim,
+                embedding_dim=emb_dim,
+                embedding_dim2=emb_dim2,
                 hidden_dim=hu,
                 num_layers=nl,
                 tagset_size=2,
@@ -367,6 +401,8 @@ def main(args):
     output = [
         "Results for experiment {} with following parameters:".format(args.experiment_name),
         "Sentence encoder: {}".format(args.encoder),
+        # the second modality, which predict reads back for late fusion
+        *(["Second sentence encoder: {}".format(args.encoder2)] if double else []),
         "Neural architecture: {}".format(args.architecture),
         "Batch size: {}".format(args.batch_size),
         "Hidden units: {}".format(best_hu),

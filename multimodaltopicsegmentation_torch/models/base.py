@@ -7,6 +7,7 @@ import dataclasses
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -100,3 +101,15 @@ def linear(in_dim: int, out_dim: int, generator: torch.Generator = None) -> nn.L
         layer.weight.uniform_(-bound, bound, generator=generator)
         layer.bias.uniform_(-bound, bound, generator=generator)
     return layer
+
+
+def linear_from_jax(sd: dict, prefix: str, p: dict):
+    """A JAX linear {"w": [in, out], "b"} into `sd` as `prefix.weight/bias`."""
+    sd[f"{prefix}.weight"] = torch.from_numpy(np.array(p["w"], np.float32).T.copy())
+    sd[f"{prefix}.bias"] = torch.from_numpy(np.array(p["b"], np.float32))
+
+
+def linear_to_jax(sd: dict, prefix: str) -> dict:
+    """Inverse of `linear_from_jax` (numpy leaves)."""
+    return {"w": sd[f"{prefix}.weight"].detach().cpu().numpy().T.copy(),
+            "b": sd[f"{prefix}.bias"].detach().cpu().numpy().copy()}

@@ -1,6 +1,5 @@
 """Architecture registry: reference architecture names -> tagger classes
-(counterpart of the JAX package's models/registry.py; the BiLSTM tagger and
-the long-document transformer taggers so far)."""
+(counterpart of the JAX package's models/registry.py; every name it builds)."""
 from __future__ import annotations
 
 import torch
@@ -8,13 +7,24 @@ import torch
 from . import taggers
 from .base import TaggerConfig
 
+_TAGGERS = {
+    "biLSTMCRF": taggers.BiRnnCrf,
+    "BiLSTM": taggers.BiLSTMTagger,
+    "BiLSTMLateFusion": taggers.BiLSTMLateFusion,
+    "SimpleBiLSTM": taggers.SimpleBiLSTM,
+    "MLP": taggers.MLPTagger,
+    "SheikhBiLSTM": taggers.SheikhBiLSTM,
+    "SwitchBiLSTM": taggers.SwitchBiLSTM,
+}
+
 
 def build(architecture: str, cfg: TaggerConfig, generator: torch.Generator = None):
-    """Instantiate a tagger by its reference architecture name."""
-    if architecture == "BiLSTM":
-        return taggers.BiLSTMTagger(cfg, generator)
-    if architecture in ("Transformer", "RecurrentLongT5", "BiLSTMRestrictedMHA",
-                        "RecurrentLongformer"):
+    """Instantiate a tagger by its reference architecture name; weights are
+    drawn from `generator`."""
+    if architecture in _TAGGERS:
+        return _TAGGERS[architecture](cfg, generator)
+    if architecture in ("Transformer", "Transformer-CRF", "RecurrentLongT5",
+                        "BiLSTMRestrictedMHA", "RecurrentLongformer"):
         from . import transformers as tr
 
         if architecture == "Transformer":
@@ -22,15 +32,12 @@ def build(architecture: str, cfg: TaggerConfig, generator: torch.Generator = Non
             # that a converted reference BertModel checkpoint carries
             return tr.TransformerSegmenter(cfg, restricted=cfg.attention_window > 0,
                                            generator=generator)
+        if architecture == "Transformer-CRF":
+            return tr.TransformerCRF(cfg, generator)
         if architecture == "RecurrentLongT5":
             return tr.RecurrentLongT5(cfg, generator)
         return tr.RecurrentLongformer(cfg, generator=generator)
-    raise NotImplementedError(
-        f"architecture {architecture!r} is not ported yet: the BiLSTM tagger and the "
-        "Transformer, RecurrentLongT5 and RecurrentLongformer taggers are; "
-        "Transformer-CRF, the CRF and the other BiLSTM variants are "
-        "ROADMAP.md section 1 item 10, the first of its next slices"
-    )
+    raise ValueError(f"No architecture named {architecture!r} implemented")
 
 
 def grads_from_jax(tagger, grads: dict) -> dict:

@@ -6,6 +6,7 @@
 - `LongT5Encoder`: T5-style pre-RMSNorm blocks with unscaled local attention
   and a relative-position-bucket bias.
 - Taggers: `TransformerSegmenter` (pyramidal windows, or dense),
+  `TransformerCRF` (the dense encoder under a linear-chain CRF),
   `RecurrentLongT5` ([BiLSTM -> LongT5 block] x num_layers) and
   `RecurrentLongformer` ([BiLSTM -> bare local-MHA block] x num_layers with
   the separate forward/backward trick, then a final BiLSTM).
@@ -39,7 +40,7 @@ the blocked attention path stores banded score tensors, it stays on. A
 checkpointed layer that drops re-draws the same tiles: the generator is set
 back to its state at the layer's entry for the recomputation.
 
-The sequence-parallel hooks and `TransformerCRF` are not here yet.
+The sequence-parallel hooks are not here yet.
 """
 from __future__ import annotations
 
@@ -51,6 +52,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..ops import crf as crf_lib
 from ..ops import rnn as rnn_lib
 from ..ops.attention import (
     dense_attention,
@@ -61,7 +63,8 @@ from ..ops.attention import (
     split_heads,
 )
 from ..ops.masks import length_mask
-from .base import TaggerConfig, dropout, head_decode, head_dim, head_loss, linear
+from .base import (TaggerConfig, dropout, head_decode, head_dim, head_loss, linear,
+                   linear_from_jax, linear_to_jax)
 
 LAYER_NORM_EPS = 1e-12  # HF BertConfig/LongformerConfig default, which the reference runs
 MAX_POSITION = 4096
@@ -169,15 +172,6 @@ def _t(a) -> torch.Tensor:
 
 def _n(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy().copy()
-
-
-def _linear_from_jax(sd: dict, prefix: str, p: dict):
-    sd[f"{prefix}.weight"] = _t(np.transpose(p["w"]))
-    sd[f"{prefix}.bias"] = _t(p["b"])
-
-
-def _linear_to_jax(sd: dict, prefix: str) -> dict:
-    return {"w": _n(sd[f"{prefix}.weight"]).T.copy(), "b": _n(sd[f"{prefix}.bias"])}
 
 
 def _norm_from_jax(sd: dict, prefix: str, p: dict):
@@ -295,11 +289,11 @@ class BertStyleEncoder(nn.Module):
         for i, lp in enumerate(p["layers"]):
             b = f"{prefix}.encoder.layer.{i}"
             for name, key in (("query", "q"), ("key", "k"), ("value", "v")):
-                _linear_from_jax(sd, f"{b}.attention.self.{name}", lp["attn"][key])
-            _linear_from_jax(sd, f"{b}.attention.output.dense", lp["attn"]["o"])
+                linear_from_jax(sd, f"{b}.attention.self.{name}", lp["attn"][key])
+            linear_from_jax(sd, f"{b}.attention.output.dense", lp["attn"]["o"])
             _norm_from_jax(sd, f"{b}.attention.output.LayerNorm", lp["ln1"])
-            _linear_from_jax(sd, f"{b}.intermediate.dense", lp["ff1"])
-            _linear_from_jax(sd, f"{b}.output.dense", lp["ff2"])
+            linear_from_jax(sd, f"{b}.intermediate.dense", lp["ff1"])
+            linear_from_jax(sd, f"{b}.output.dense", lp["ff2"])
             _norm_from_jax(sd, f"{b}.output.LayerNorm", lp["ln2"])
         return sd
 
@@ -310,14 +304,14 @@ class BertStyleEncoder(nn.Module):
             b = f"{prefix}.encoder.layer.{i}"
             layers.append({
                 "attn": {
-                    "q": _linear_to_jax(sd, f"{b}.attention.self.query"),
-                    "k": _linear_to_jax(sd, f"{b}.attention.self.key"),
-                    "v": _linear_to_jax(sd, f"{b}.attention.self.value"),
-                    "o": _linear_to_jax(sd, f"{b}.attention.output.dense"),
+                    "q": linear_to_jax(sd, f"{b}.attention.self.query"),
+                    "k": linear_to_jax(sd, f"{b}.attention.self.key"),
+                    "v": linear_to_jax(sd, f"{b}.attention.self.value"),
+                    "o": linear_to_jax(sd, f"{b}.attention.output.dense"),
                 },
                 "ln1": _norm_to_jax(sd, f"{b}.attention.output.LayerNorm"),
-                "ff1": _linear_to_jax(sd, f"{b}.intermediate.dense"),
-                "ff2": _linear_to_jax(sd, f"{b}.output.dense"),
+                "ff1": linear_to_jax(sd, f"{b}.intermediate.dense"),
+                "ff2": linear_to_jax(sd, f"{b}.output.dense"),
                 "ln2": _norm_to_jax(sd, f"{b}.output.LayerNorm"),
             })
         return {"pos": _n(sd[f"{prefix}.embeddings.position_table"]),
@@ -400,10 +394,10 @@ class LongT5Encoder(nn.Module):
         for j, lp in enumerate(p["layers"]):
             b = f"{prefix}.encoder.block.{j}"
             for key in ("q", "k", "v", "o"):
-                _linear_from_jax(sd, f"{b}.layer.0.LocalSelfAttention.{key}", lp["attn"][key])
+                linear_from_jax(sd, f"{b}.layer.0.LocalSelfAttention.{key}", lp["attn"][key])
             _norm_from_jax(sd, f"{b}.layer.0.layer_norm", lp["ln1"])
-            _linear_from_jax(sd, f"{b}.layer.1.DenseReluDense.wi", lp["wi"])
-            _linear_from_jax(sd, f"{b}.layer.1.DenseReluDense.wo", lp["wo"])
+            linear_from_jax(sd, f"{b}.layer.1.DenseReluDense.wi", lp["wi"])
+            linear_from_jax(sd, f"{b}.layer.1.DenseReluDense.wo", lp["wo"])
             _norm_from_jax(sd, f"{b}.layer.1.layer_norm", lp["ln2"])
         sd[f"{prefix}.encoder.block.0.layer.0.LocalSelfAttention.relative_attention_bias.weight"] = \
             _t(p["rel_bias"])
@@ -416,11 +410,11 @@ class LongT5Encoder(nn.Module):
         for j in range(_count(sd, prefix + ".encoder.block.{}.layer.0.LocalSelfAttention.q.weight")):
             b = f"{prefix}.encoder.block.{j}"
             layers.append({
-                "attn": {key: _linear_to_jax(sd, f"{b}.layer.0.LocalSelfAttention.{key}")
+                "attn": {key: linear_to_jax(sd, f"{b}.layer.0.LocalSelfAttention.{key}")
                          for key in ("q", "k", "v", "o")},
                 "ln1": _norm_to_jax(sd, f"{b}.layer.0.layer_norm"),
-                "wi": _linear_to_jax(sd, f"{b}.layer.1.DenseReluDense.wi"),
-                "wo": _linear_to_jax(sd, f"{b}.layer.1.DenseReluDense.wo"),
+                "wi": linear_to_jax(sd, f"{b}.layer.1.DenseReluDense.wi"),
+                "wo": linear_to_jax(sd, f"{b}.layer.1.DenseReluDense.wo"),
                 "ln2": _norm_to_jax(sd, f"{b}.layer.1.layer_norm"),
             })
         rel = sd[f"{prefix}.encoder.block.0.layer.0.LocalSelfAttention.relative_attention_bias.weight"]
@@ -483,13 +477,51 @@ class TransformerSegmenter(_Tagger):
     @staticmethod
     def from_jax_params(params: dict) -> dict:
         sd = BertStyleEncoder.from_jax_params(params["encoder"], "model.model")
-        _linear_from_jax(sd, "classification", params["cls"])
+        linear_from_jax(sd, "classification", params["cls"])
         return sd
 
     @staticmethod
     def _to_jax(sd: dict) -> dict:
         return {"encoder": BertStyleEncoder.to_jax_params(sd, "model.model"),
-                "cls": _linear_to_jax(sd, "classification")}
+                "cls": linear_to_jax(sd, "classification")}
+
+
+class TransformerCRF(_Tagger):
+    """Dense BERT-style encoder (d_model = embedding_dim, FFN width =
+    hidden_dim) -> linear-chain CRF. Hidden dropout at dropout_in, no
+    attention-probs dropout; decode is the Viterbi path (scores: one
+    best-path score per document). The reference's TransformerCRF cannot
+    write a checkpoint, so the names are those of `TransformerSegmenter`'s
+    encoder plus `crf.fc.*` and `crf.transitions`."""
+
+    def __init__(self, cfg: TaggerConfig, generator: torch.Generator = None):
+        super().__init__()
+        self.cfg = cfg
+        self.model = _bag(model=BertStyleEncoder(
+            cfg.embedding_dim, cfg.nheads, cfg.num_layers, cfg.hidden_dim, None,
+            drop=cfg.dropout_in, generator=generator))
+        self.crf = crf_lib.CRF(cfg.embedding_dim, cfg.tagset_size, generator)
+
+    def loss(self, x, lengths, tags, generator=None):
+        mask = length_mask(lengths.to(x.device), x.shape[1], x.dtype)
+        h = self.model.model(x, lengths, True, generator)
+        return crf_lib.crf_loss(self.crf, h, tags.long().clamp_min(0), mask)
+
+    def decode(self, x, lengths, threshold=None):
+        mask = length_mask(lengths.to(x.device), x.shape[1], x.dtype)
+        score, paths = crf_lib.viterbi_decode(self.crf, self.model.model(x, lengths), mask)
+        return score, paths.bool()
+
+    @staticmethod
+    def from_jax_params(params: dict) -> dict:
+        sd = BertStyleEncoder.from_jax_params(params["encoder"], "model.model")
+        crf_lib.from_jax_params(sd, "crf", params["crf"])
+        return sd
+
+    @staticmethod
+    def _to_jax(sd: dict) -> dict:
+        return {"encoder": BertStyleEncoder.to_jax_params(sd, "model.model"),
+                "crf": crf_lib.to_jax_params(sd, "crf")}
 
 
 class RecurrentLongT5(_Tagger):
@@ -528,7 +560,7 @@ class RecurrentLongT5(_Tagger):
         for i, bp in enumerate(params["blocks"]):
             _lstm_from_jax(sd, f"model.{i}.lstm", bp["lstm"])
             sd.update(LongT5Encoder.from_jax_params(bp["t5"], f"model.{i}.transformer.model"))
-        _linear_from_jax(sd, "classification", params["cls"])
+        linear_from_jax(sd, "classification", params["cls"])
         return sd
 
     @staticmethod
@@ -538,7 +570,7 @@ class RecurrentLongT5(_Tagger):
              "t5": LongT5Encoder.to_jax_params(sd, f"model.{i}.transformer.model")}
             for i in range(_count(sd, "model.{}.lstm.rnn.weight_ih_l0"))
         ]
-        return {"blocks": blocks, "cls": _linear_to_jax(sd, "classification")}
+        return {"blocks": blocks, "cls": linear_to_jax(sd, "classification")}
 
 
 class RecurrentLongformer(_Tagger):
@@ -611,11 +643,11 @@ class RecurrentLongformer(_Tagger):
         for i, bp in enumerate(params["blocks"]):
             _lstm_from_jax(sd, f"model.{i}.lstm", bp["lstm"])
             for name, key in (("query", "q"), ("key", "k"), ("value", "v")):
-                _linear_from_jax(sd, f"model.{i}.transformer.model.attention.self.{name}",
+                linear_from_jax(sd, f"model.{i}.transformer.model.attention.self.{name}",
                                  bp["attn"][key])
         if "final_lstm" in params:
             _lstm_from_jax(sd, f"model.{n}", params["final_lstm"])
-        _linear_from_jax(sd, "classification", params["cls"])
+        linear_from_jax(sd, "classification", params["cls"])
         return sd
 
     @staticmethod
@@ -624,12 +656,12 @@ class RecurrentLongformer(_Tagger):
         a = "model.{}.transformer.model.attention.self"
         params = {"blocks": [
             {"lstm": _lstm_to_jax(sd, f"model.{i}.lstm"),
-             "attn": {"q": _linear_to_jax(sd, a.format(i) + ".query"),
-                      "k": _linear_to_jax(sd, a.format(i) + ".key"),
-                      "v": _linear_to_jax(sd, a.format(i) + ".value")}}
+             "attn": {"q": linear_to_jax(sd, a.format(i) + ".query"),
+                      "k": linear_to_jax(sd, a.format(i) + ".key"),
+                      "v": linear_to_jax(sd, a.format(i) + ".value")}}
             for i in range(n)
         ]}
         if f"model.{n}.rnn.weight_ih_l0" in sd:
             params["final_lstm"] = _lstm_to_jax(sd, f"model.{n}")
-        params["cls"] = _linear_to_jax(sd, "classification")
+        params["cls"] = linear_to_jax(sd, "classification")
         return params

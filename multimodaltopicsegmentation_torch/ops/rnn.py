@@ -36,33 +36,40 @@ class RNNStack(nn.Module):
         cls = nn.LSTM if lstm else nn.GRU
         self.rnn = cls(in_dim, hidden, num_layers=num_layers, bidirectional=bidirectional,
                        batch_first=True)
-        self._init(generator, lstm)
-
-    @torch.no_grad()
-    def _init(self, generator, lstm):
-        """Reference TF-style init: xavier-uniform W_ih, orthogonal W_hh, zero
-        biases, LSTM forget-gate bias 1 on b_ih."""
-        H = self.rnn.hidden_size
-        for name, p in self.rnn.named_parameters():
-            if name.startswith("weight_ih"):
-                nn.init.xavier_uniform_(p, generator=generator)
-            elif name.startswith("weight_hh"):
-                nn.init.orthogonal_(p, generator=generator)
-            else:
-                p.zero_()
-                if lstm and name.startswith("bias_ih"):
-                    p[H : 2 * H] = 1.0
+        tf_init(self.rnn, generator)
 
     def forward(self, x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
         """x [B, L, D], lengths [B] -> [B, L, H * directions], padding zeroed."""
-        L = x.shape[1]
-        # train() on the recurrent module changes nothing but cuDNN's choice of
-        # a path that keeps what its backward needs (its dropout is 0)
-        self.rnn.train(torch.is_grad_enabled())
-        packed = pack_padded_sequence(x, lengths.cpu().long().clamp_min(1), batch_first=True,
-                                      enforce_sorted=False)
-        y, _ = pad_packed_sequence(self.rnn(packed)[0], batch_first=True, total_length=L)
-        return y * length_mask(lengths.to(x.device), L, y.dtype)[..., None]
+        return run_packed(self.rnn, x, lengths)
+
+
+@torch.no_grad()
+def tf_init(rnn: nn.RNNBase, generator: torch.Generator = None):
+    """Reference TF-style init: xavier-uniform W_ih, orthogonal W_hh, zero
+    biases, LSTM forget-gate bias 1 on b_ih."""
+    H = rnn.hidden_size
+    for name, p in rnn.named_parameters():
+        if name.startswith("weight_ih"):
+            nn.init.xavier_uniform_(p, generator=generator)
+        elif name.startswith("weight_hh"):
+            nn.init.orthogonal_(p, generator=generator)
+        else:
+            p.zero_()
+            if isinstance(rnn, nn.LSTM) and name.startswith("bias_ih"):
+                p[H : 2 * H] = 1.0
+
+
+def run_packed(rnn: nn.RNNBase, x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """A batch-first `nn.LSTM`/`nn.GRU` over packed sequences: x [B, L, D],
+    lengths [B] -> [B, L, H * directions], padding zeroed."""
+    L = x.shape[1]
+    # train() on the recurrent module changes nothing but cuDNN's choice of
+    # a path that keeps what its backward needs (its dropout is 0)
+    rnn.train(torch.is_grad_enabled())
+    packed = pack_padded_sequence(x, lengths.cpu().long().clamp_min(1), batch_first=True,
+                                  enforce_sorted=False)
+    y, _ = pad_packed_sequence(rnn(packed)[0], batch_first=True, total_length=L)
+    return y * length_mask(lengths.to(x.device), L, y.dtype)[..., None]
 
 
 def from_jax_params(layers: list, prefix: str = "rnn") -> dict:

@@ -83,16 +83,18 @@ class PlateauScheduler:
         return self.lr
 
 
-_DEVICE_KEYS = ("src_tokens", "tgt_tokens", "src_lengths")
+_DEVICE_KEYS = ("src_tokens", "tgt_tokens", "src_lengths", "domain", "src_tokens2")
 
 
 def batches_to_device(batches: List[dict], device) -> List[dict]:
-    """Copy each batch's arrays to the device ONCE, before the epoch loop."""
+    """Copy each batch's arrays to the device ONCE, before the epoch loop
+    (the domain flags and the second modality too, where a batch has them)."""
     out = []
     for batch in batches:
         db = dict(batch)
         for key in _DEVICE_KEYS:
-            db[key] = torch.as_tensor(np.asarray(batch[key])).to(device)
+            if key in batch:
+                db[key] = torch.as_tensor(np.asarray(batch[key])).to(device)
         out.append(db)
     return out
 
@@ -151,6 +153,9 @@ class Trainer:
         self.threshold = threshold
         self.eb = use_end_boundary
         self.zero_baseline = zero_baseline
+        # SwitchBiLSTM takes each batch's domain flags, late fusion its second modality
+        self.domain = registry.is_domain_adapt(architecture)
+        self.double = registry.is_double_input(architecture)
         # the non-finite-loss tripwire, the analogue of the reference's
         # always-on Lightning Trainer(detect_anomaly=True)
         self.detect_anomaly = detect_anomaly
@@ -186,12 +191,19 @@ class Trainer:
             group["lr"] = lr
 
     # -- one step ---------------------------------------------------------------
+    def _loss(self, batch: dict, generator) -> torch.Tensor:
+        args = (batch["src_tokens"], batch["src_lengths"], batch["tgt_tokens"])
+        if self.domain:
+            return self.tagger.loss(*args, batch["domain"], generator=generator)
+        if self.double:
+            return self.tagger.loss(*args, generator=generator, x2=batch["src_tokens2"])
+        return self.tagger.loss(*args, generator=generator)
+
     def _train_step(self, batch: dict) -> torch.Tensor:
         """Forward with dropout, backward, clip, optimizer step -> the loss,
         detached and left on the device."""
         self.opt.zero_grad(set_to_none=True)
-        loss = self.tagger.loss(batch["src_tokens"], batch["src_lengths"], batch["tgt_tokens"],
-                                generator=self.generator)
+        loss = self._loss(batch, self.generator)
         loss.backward()
         if self.clip and self.clip > 0:
             clip_by_global_norm_(list(self.tagger.parameters()), self.clip)
@@ -200,8 +212,7 @@ class Trainer:
 
     def _eval_loss(self, batch: dict) -> torch.Tensor:
         with torch.no_grad():
-            return self.tagger.loss(batch["src_tokens"], batch["src_lengths"], batch["tgt_tokens"],
-                                    generator=None)
+            return self._loss(batch, None)
 
     def _snapshot(self):
         return {k: v.detach().clone() for k, v in self.tagger.state_dict().items()}
@@ -288,11 +299,19 @@ class Trainer:
 
     # -- decode -----------------------------------------------------------------
     def _decode(self, batch: dict, threshold: float):
-        """-> (scores, tags) of one batch as numpy."""
+        """-> (scores, tags) of one batch as numpy; the scores are the head's
+        logits, or one Viterbi score per document for a CRF."""
         with torch.inference_mode():
-            x = torch.as_tensor(np.asarray(batch["src_tokens"])).to(self.device)
-            lengths = torch.as_tensor(np.asarray(batch["src_lengths"])).to(self.device)
-            scores, tags = self.tagger.decode(x, lengths, threshold)
+            x, lengths = (torch.as_tensor(np.asarray(batch[k])).to(self.device)
+                          for k in ("src_tokens", "src_lengths"))
+            if self.domain:
+                domains = torch.as_tensor(np.asarray(batch["domain"])).to(self.device)
+                scores, tags = self.tagger.decode(x, lengths, domains, threshold)
+            elif self.double:
+                x2 = torch.as_tensor(np.asarray(batch["src_tokens2"])).to(self.device)
+                scores, tags = self.tagger.decode(x, lengths, threshold, x2=x2)
+            else:
+                scores, tags = self.tagger.decode(x, lengths, threshold)
         return scores.cpu().numpy(), tags.cpu().numpy()
 
     # -- test -------------------------------------------------------------------
@@ -348,11 +367,14 @@ class Trainer:
                 per_doc.append(doc)
 
                 # the stored scores are what the decode consumed: raw head
-                # logits, [L] for the sigmoid heads, [L, C] for CrossEntropy
+                # logits, [L] for the sigmoid heads, [L, C] for CrossEntropy;
+                # a CRF's one Viterbi score per document
                 if scores_np.ndim == 3:
                     doc_scores = scores_np[i][:L] if scores_np.shape[-1] > 1 else scores_np[i][:L, 0]
-                else:
+                elif scores_np.ndim == 2:
                     doc_scores = scores_np[i][:L]
+                else:
+                    doc_scores = scores_np[i]
                 all_scores.append(np.atleast_1d(np.asarray(doc_scores, np.float64)))
 
         # corpus aggregate = mean over documents
@@ -369,6 +391,10 @@ class Trainer:
         docs = []
         for batch in valid_batches:
             scores, _ = self._decode(batch, 0.5)
+            if scores.ndim == 1:
+                # a CRF's one Viterbi score per document: no threshold to
+                # search, the reference default stays
+                return 0.5, float("nan")
             for i in range(batch.get("n_real", len(batch["src_lengths"]))):
                 L = int(batch["src_lengths"][i])
                 s = scores[i][:L]  # [L, C] head logits (C = 1 for the sigmoid heads)

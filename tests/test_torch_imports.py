@@ -16,7 +16,8 @@ def test_port_modules_import_no_jax():
         "assert len(names) > 20, names\n"
         "for new in ('ops.flash_attention', 'ops.attention', 'models.transformers',\n"
         "            'models.registry', 'ops.losses', 'eval.metrics', 'train.data',\n"
-        "            'train.loop', 'cli.train_fit'):\n"
+        "            'train.loop', 'cli.train_fit', 'ops.crf', 'ops.cosine_loss',\n"
+        "            'models.taggers'):\n"
         "    assert pkg.__name__ + '.' + new in names, new\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"

@@ -183,3 +183,111 @@ def test_segment_audio_matches_jax():
             p.adapt, p.interval, p.sr = adapt, 1, SR
             spans.append(p.segment_audio(None, tags, mock_audio=audio, mock_sr=SR)[0])
         assert spans[0] == spans[1]
+
+
+ZOO_TAGGERS = ["biLSTMCRF", "Transformer-CRF", "SimpleBiLSTM", "MLP", "SheikhBiLSTM",
+               "BiLSTMLateFusion"]
+
+
+def _zoo_checkpoint(tmp_path, architecture):
+    """A JAX-written random checkpoint of `architecture` whose scores are
+    spread so that both tags occur (a sigmoid head's bias is set so that the
+    median unit of a random document scores 0.5), and its results.txt."""
+    import jax.numpy as jnp
+
+    from multimodaltopicsegmentation_tpu.models import registry as jax_registry
+
+    cfg = JaxTaggerConfig(embedding_dim=32, embedding_dim2=12, hidden_dim=16, num_layers=2,
+                          nheads=4, loss_fn="CrossEntropy" if architecture.endswith("CRF")
+                          else "FocalLoss")
+    arch = jax_registry.build(architecture, cfg)
+    params = jax.tree.map(np.asarray, arch.init(jax.random.PRNGKey(4)))
+    if "crf" in params:
+        params["crf"]["fc_w"] = params["crf"]["fc_w"] * 20.0
+    if "cls" in params:
+        rng = np.random.default_rng(5)
+        x, x2 = (jnp.asarray(rng.standard_normal((1, 70, d)), jnp.float32) for d in (32, 12))
+        kw = {"x2": x2} if architecture == "BiLSTMLateFusion" else {}
+        logits, _ = arch.decode(params, x, jnp.asarray([70]), 0.5, **kw)
+        params["cls"]["b"] = params["cls"]["b"] - np.median(np.asarray(logits))
+    if architecture == "SheikhBiLSTM":
+        params["fwd_dense"]["w"] = params["fwd_dense"]["w"] * 5.0
+    ckpt = str(tmp_path / "ckpt" / "best_model")
+    jax_ckpt.save(ckpt, params, cfg, architecture)
+    hyp = tmp_path / "results.txt"
+    second = "Second sentence encoder: crepe\n" if architecture == "BiLSTMLateFusion" else ""
+    hyp.write_text(f"Sentence encoder: wav2vec_mean\n{second}Neural architecture: {architecture}\n")
+    return ckpt, str(hyp)
+
+
+def _write_docs(folder, units, dim, seed):
+    rng = np.random.default_rng(seed)
+    folder.mkdir()
+    for d, n in enumerate(units):
+        np.save(folder / f"doc{d}.npy", rng.standard_normal((n, dim)).astype(np.float32))
+    return str(folder)
+
+
+@pytest.mark.parametrize("architecture", ZOO_TAGGERS)
+def test_predict_cli_zoo_taggers_match_jax(tmp_path, monkeypatch, architecture):
+    """Precomputed embeddings -> tags through both predict CLIs, three ragged
+    documents in two chunks: a CRF's tags are its Viterbi paths; late fusion
+    reads its second modality from -ef2."""
+    from multimodaltopicsegmentation_tpu.cli.predict import cli_main as jax_predict
+    from multimodaltopicsegmentation_torch.cli.predict import cli_main as torch_predict
+
+    _one_jax_device(monkeypatch)
+    units = (70, 9, 130)
+    emb = _write_docs(tmp_path / "emb", units, 32, 0)
+    emb2 = _write_docs(tmp_path / "emb2", units, 12, 1)
+    ckpt, hyp = _zoo_checkpoint(tmp_path, architecture)
+    common = ["-ef", emb, "-hyp", hyp, "-model", ckpt, "-bs", "2", "-rjs"]
+    if architecture == "BiLSTMLateFusion":
+        common += ["-ef2", emb2]
+    jax_predict(common + ["-exp", str(tmp_path / "jexp")])
+    torch_predict(common + ["-exp", str(tmp_path / "texp"), "--device", "cpu"])
+    results = []
+    for exp in ("jexp", "texp"):
+        with open(tmp_path / exp / "results.pkl", "rb") as f:
+            results.append(pickle.load(f))
+    assert results[1] == results[0]
+    assert [len(results[1][f"doc{d}.npy"]) for d in range(3)] == list(units)
+    assert 0 < sum(sum(t) for t in results[1].values()) < sum(units)  # both tags occur
+
+
+def test_predict_cli_refusals_match_jax(tmp_path, monkeypatch):
+    """SwitchBiLSTM is refused (no domain ids at predict time); late fusion
+    refuses a results.txt without its second encoder, a second folder with
+    other files, and one with other unit counts, as the JAX CLI does."""
+    from multimodaltopicsegmentation_tpu.cli.predict import cli_main as jax_predict
+    from multimodaltopicsegmentation_tpu.models.taggers import SwitchBiLSTM as JaxSwitch
+    from multimodaltopicsegmentation_torch.cli.predict import cli_main as torch_predict
+
+    _one_jax_device(monkeypatch)
+    predicts = (jax_predict, lambda argv: torch_predict(argv + ["--device", "cpu"]))
+    emb = _write_docs(tmp_path / "emb", (20, 9), 32, 0)
+    cfg = JaxTaggerConfig(embedding_dim=32, hidden_dim=8, num_layers=1)
+    switch = str(tmp_path / "switch.ckpt")
+    jax_ckpt.save(switch, JaxSwitch(cfg).init(jax.random.PRNGKey(0)), cfg, "SwitchBiLSTM")
+    hyp_switch = tmp_path / "switch.txt"
+    hyp_switch.write_text("Sentence encoder: wav2vec_mean\nNeural architecture: SwitchBiLSTM\n")
+    for i, predict in enumerate(predicts):
+        with pytest.raises(NotImplementedError, match="domain ids"):
+            predict(["-ef", emb, "-hyp", str(hyp_switch), "-model", switch,
+                     "-exp", str(tmp_path / f"s{i}")])
+
+    ckpt, hyp = _zoo_checkpoint(tmp_path, "BiLSTMLateFusion")
+    no_second = tmp_path / "no_second.txt"
+    no_second.write_text("Sentence encoder: wav2vec_mean\nNeural architecture: BiLSTMLateFusion\n")
+    other_files = _write_docs(tmp_path / "other_files", (20,), 12, 1)
+    other_units = _write_docs(tmp_path / "other_units", (20, 10), 12, 1)
+    for i, predict in enumerate(predicts):
+        with pytest.raises(ValueError, match="Second sentence encoder"):
+            predict(["-ef", emb, "-hyp", str(no_second), "-model", ckpt,
+                     "-exp", str(tmp_path / f"a{i}")])
+        with pytest.raises(ValueError, match="same documents"):
+            predict(["-ef", emb, "-ef2", other_files, "-hyp", hyp, "-model", ckpt,
+                     "-exp", str(tmp_path / f"b{i}")])
+        with pytest.raises(ValueError, match="9 units"):
+            predict(["-ef", emb, "-ef2", other_units, "-hyp", hyp, "-model", ckpt,
+                     "-exp", str(tmp_path / f"c{i}")])

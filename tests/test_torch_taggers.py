@@ -115,6 +115,21 @@ def test_checkpoint_name_grammar():
 
 
 def test_registry_refuses_unported_architectures():
-    for name in ("Transformer-CRF", "biLSTMCRF", "BiLSTMLateFusion"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md section 1 item 10"):
-            registry.build(name, TaggerConfig())
+    """Every architecture name the JAX registry builds is ported; any other
+    name raises ValueError, as there."""
+    from multimodaltopicsegmentation_tpu.models import registry as jax_registry
+
+    cfg = TaggerConfig(embedding_dim=12, embedding_dim2=6, hidden_dim=8, num_layers=1, nheads=2,
+                       attention_window=4)
+    jcfg = JaxTaggerConfig(embedding_dim=12, embedding_dim2=6, hidden_dim=8, num_layers=1,
+                           nheads=2, attention_window=4)
+    for name in ("biLSTMCRF", "BiLSTM", "BiLSTMLateFusion", "SimpleBiLSTM", "MLP", "SheikhBiLSTM",
+                 "SwitchBiLSTM", "Transformer", "Transformer-CRF", "RecurrentLongT5",
+                 "BiLSTMRestrictedMHA", "RecurrentLongformer"):
+        jax_registry.build(name, jcfg)
+        assert isinstance(registry.build(name, cfg), torch.nn.Module), name
+    for name in ("LSTM", "TransformerCRF", "bilstmcrf", ""):
+        with pytest.raises(ValueError, match="No architecture named"):
+            jax_registry.build(name, jcfg)
+        with pytest.raises(ValueError, match="No architecture named"):
+            registry.build(name, cfg)

@@ -16,7 +16,12 @@ TF32 off, dropout 0 (the two frameworks cannot draw the same masks).
 - `Trainer.test` / `search_threshold` / `predict` on a shared checkpoint,
   `eval/metrics` on random segmentations, `train/data` array for array;
 - the train CLI end to end on the synthetic corpus with `--device cpu`, its
-  checkpoint served by both predict CLIs.
+  checkpoint served by both predict CLIs;
+- the tagger zoo: both train CLIs from the same first weights on
+  `-arc biLSTMCRF` and on late fusion (`-enc2 -ef2`) write the same
+  results.txt metrics, each predict CLI serves both checkpoints alike, and
+  `test` / `search_threshold` / `predict` agree for the CRFs, SwitchBiLSTM,
+  late fusion and SheikhBiLSTM.
 """
 import dataclasses
 import json
@@ -525,7 +530,7 @@ def test_data_loading_and_batches_equal_the_jax_package(tmp_path, kwargs):
             _assert_same_docs(s_got, s_want)
     docs = got[0][0]
     for pad_kwargs in (dict(crf=False), dict(crf=True, truncate=True, truncate_value=50),
-                       dict(crf=False, sort_by_length=True)):
+                       dict(crf=False, sort_by_length=True), dict(crf=True, domain_adapt=True)):
         b_want = list(JD.batches(want[0][0], 4, **pad_kwargs))
         b_got = list(TD.batches(docs, 4, **pad_kwargs))
         assert len(b_got) == len(b_want)
@@ -621,7 +626,146 @@ def test_train_cli_defaults_to_cuda_and_refuses_unported_flags(tmp_path):
                   ["-pca"], ["--infer"], ["-bd"], ["-zsl", "a"]):
         with pytest.raises(SystemExit, match="not ported yet"):
             _run_train_cli(base + ["-exp", str(tmp_path / "e1"), "--device", "cpu"] + flags)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md section 1 item 10"):
-        _run_train_cli(base[2:] + ["-arc", "BiLSTMLateFusion", "-exp", str(tmp_path / "e2"),
+    assert not os.path.exists(tmp_path / "e1")
+    with pytest.raises(ValueError, match="No architecture named"):
+        _run_train_cli(base[2:] + ["-arc", "LateFusion", "-exp", str(tmp_path / "e2"),
                                    "--device", "cpu"])
-    assert not os.path.exists(tmp_path / "e1") and not os.path.exists(tmp_path / "e2")
+    assert not os.path.exists(tmp_path / "e2")
+    # late fusion, refused until its slice, now trains with its second modality
+    emb2 = _second_modality(emb_dir, str(tmp_path / "corpus" / "embeddings2"))
+    _run_train_cli(base[2:] + ["-arc", "BiLSTMLateFusion", "-enc2", "CNN", "-ef2", emb2,
+                               "-exp", str(tmp_path / "e3"), "-hu", "8", "-max", "2", "-bs", "4",
+                               "--device", "cpu"])
+    txt = open(os.path.join(tmp_path / "e3", "results.txt")).read()
+    assert "Second sentence encoder: CNN" in txt and "Mean Pk obtained is" in txt
+    params, cfg, arch, _ = ckpt.load(os.path.join(tmp_path / "e3", "checkpoints", "best_model"))
+    assert arch == "BiLSTMLateFusion" and (cfg.embedding_dim, cfg.embedding_dim2) == (30, 30)
+
+
+def _second_modality(emb_dir, out_dir, seed=7):
+    """A second modality for late fusion: the same file names and unit counts
+    as `emb_dir`, 30-dim features of their own (`-enc2 CNN`)."""
+    rng = np.random.default_rng(seed)
+    os.makedirs(out_dir)
+    for name in sorted(os.listdir(emb_dir)):
+        n = len(np.load(os.path.join(emb_dir, name)))
+        np.save(os.path.join(out_dir, name), rng.standard_normal((n, 30)).astype(np.float32))
+    return out_dir
+
+
+def _jax_first_weights(monkeypatch):
+    """The port's Trainer starts from the weights the JAX Trainer draws for the
+    same seed (its `fit` splits PRNGKey(seed) once), so that both train CLIs
+    follow one trajectory."""
+    build = TLoop.Trainer._build
+
+    def _build(self):
+        build(self)
+        fields = {f.name: getattr(self.cfg, f.name) for f in dataclasses.fields(self.cfg)
+                  if f.name != "dtype"}
+        jarch = jax_registry.build(self.arch_name, JaxTaggerConfig(**fields))
+        k_init = jax.random.split(jax.random.PRNGKey(self.seed))[1]
+        params = jax.tree.map(np.asarray, jarch.init(k_init))
+        self.tagger.load_state_dict(type(self.tagger).from_jax_params(params))
+
+    monkeypatch.setattr(TLoop.Trainer, "_build", _build)
+
+
+@pytest.mark.parametrize("architecture", ["biLSTMCRF", "BiLSTMLateFusion"])
+def test_both_train_clis_agree_and_serve_each_others_checkpoints(tmp_path, monkeypatch,
+                                                                 architecture):
+    """Both packages' train CLIs on the synthetic corpus from the same first
+    weights write the same results.txt metrics; each package's predict CLI
+    serves both checkpoints with identical results.pkl."""
+    from multimodaltopicsegmentation_tpu.cli import predict as jax_predict
+    from multimodaltopicsegmentation_tpu.cli import train_fit as jax_train_fit
+    from multimodaltopicsegmentation_torch.cli import predict as torch_predict
+
+    devices = jax.devices
+    monkeypatch.setattr(jax, "devices", lambda *a: devices(*a)[:1])
+    _jax_first_weights(monkeypatch)
+    emb_dir, lab_file, split = make_synthetic_corpus(str(tmp_path / "corpus"), n_docs=10, dim=30)
+    extra, extra_predict = [], []
+    if architecture == "BiLSTMLateFusion":
+        emb2 = _second_modality(emb_dir, str(tmp_path / "corpus" / "embeddings2"))
+        extra, extra_predict = ["-enc2", "CNN", "-ef2", emb2], ["-ef2", emb2]
+    argv = ["-arc", architecture, "-enc", "CNN", "-ef", emb_dir, "-lf", lab_file, "-lr", "1e-2",
+            "-hu", "8", "-nl", "1", "-bs", "4", "-max", "3", "-pat", "3", "-split", split,
+            "-ar", "-as"] + extra
+    exps = {"jax": str(tmp_path / "exp_jax"), "torch": str(tmp_path / "exp_torch")}
+    cwd = os.getcwd()
+    try:
+        jax_train_fit.cli_main(argv + ["-exp", exps["jax"]])
+    finally:
+        os.chdir(cwd)
+    _run_train_cli(argv + ["-exp", exps["torch"], "--device", "cpu"])
+
+    texts = {}
+    for name, exp in exps.items():
+        lines = open(os.path.join(exp, "results.txt")).read().split("\n")
+        texts[name] = [ln for ln in lines if ln and not ln.startswith("Results for experiment")]
+    assert texts["torch"] == texts["jax"]
+    assert any(ln.startswith("Mean Pk obtained is") for ln in texts["torch"])
+    assert ("Second sentence encoder: CNN" in texts["torch"]) == (architecture == "BiLSTMLateFusion")
+    with open(os.path.join(exps["jax"], "all_scores.json")) as f, \
+            open(os.path.join(exps["torch"], "all_scores.json")) as g:
+        want, got = json.load(f), json.load(g)
+    assert want.keys() == got.keys()
+    for k in want:
+        # a Viterbi score sums over a document's units: relative 1e-5 after training
+        np.testing.assert_allclose(got[k], want[k], atol=ATOL, rtol=1e-5)
+
+    results = {}
+    for trained, exp in exps.items():
+        for served_by, predict in (("jax", jax_predict.cli_main), ("torch", torch_predict.cli_main)):
+            out = str(tmp_path / f"pred_{trained}_{served_by}")
+            predict(["-ef", emb_dir, "-hyp", os.path.join(exp, "results.txt"), "-model",
+                     os.path.join(exp, "checkpoints", "best_model"), "-exp", out, "-rjs"]
+                    + extra_predict + (["--device", "cpu"] if served_by == "torch" else []))
+            with open(os.path.join(out, "results.pkl"), "rb") as f:
+                results[trained, served_by] = pickle.load(f)
+    assert len(results["torch", "torch"]) == 10
+    for key, r in results.items():
+        assert r == results["jax", "jax"], key
+
+
+@pytest.mark.parametrize("architecture,kw", [
+    ("biLSTMCRF", dict(loss_fn="CrossEntropy")),
+    ("Transformer-CRF", dict(loss_fn="CrossEntropy", nheads=2)),
+    ("SwitchBiLSTM", dict(switch="dense", loss_fn="FocalLoss")),
+    ("SwitchBiLSTM", dict(switch="lstm", loss_fn="CrossEntropy")),
+    ("BiLSTMLateFusion", dict(embedding_dim2=6, loss_fn="FocalLoss")),
+    ("SheikhBiLSTM", dict(loss_fn="BinaryCrossEntropy")),
+])
+def test_trainer_test_and_search_threshold_match_jax_across_the_zoo(tmp_path, architecture, kw):
+    """`test`, `search_threshold` and `predict` of both Trainers on one
+    checkpoint: a CRF stores one Viterbi score per document and searches no
+    threshold (0.5, nan); SwitchBiLSTM reads each batch's domain flags, late
+    fusion its second modality."""
+    jcfg, cfg = _cfgs(**kw)
+    params = _jax_params(jax_registry.build(architecture, jcfg), seed=2)
+    path = str(tmp_path / "shared.ckpt")
+    jax_ckpt.save(path, params, jcfg, architecture)
+    batches = _eval_batches()
+    rng = np.random.default_rng(9)
+    for b in batches:
+        b["domain"] = np.array([1, 0, 1], np.int32)
+        b["src_tokens2"] = rng.standard_normal(b["src_tokens"].shape[:2] + (6,)).astype(np.float32)
+        if registry.is_crf(architecture):
+            b["tgt_tokens"][b["tgt_tokens"] < 0] = 0.0
+    jt = JLoop.Trainer(architecture, jcfg)
+    tt = TLoop.Trainer(architecture, cfg, device="cpu")
+    jparams, tparams = jax_ckpt.load(path)[0], ckpt.load(path)[0]
+    want, want_docs, want_scores = jt.test(jparams, batches)
+    got, got_docs, got_scores = tt.test(tparams, batches)
+    assert got == pytest.approx(want, abs=1e-9) and got_docs == want_docs
+    assert [s.shape for s in got_scores] == [s.shape for s in want_scores]
+    for a, b in zip(got_scores, want_scores):
+        np.testing.assert_allclose(a, b, atol=ATOL)
+    want_th, got_th = jt.search_threshold(jparams, batches), tt.search_threshold(tparams, batches)
+    if registry.is_crf(architecture):
+        assert all(s.shape == (1,) for s in got_scores)
+        assert got_th[0] == want_th[0] == 0.5 and np.isnan(got_th[1]) and np.isnan(want_th[1])
+    else:
+        assert got_th == pytest.approx(want_th)
+    assert tt.predict(tparams, batches, 0.4) == jt.predict(jparams, batches, 0.4)
