@@ -54,7 +54,19 @@ Phases (any failure exits non-zero, and no result line is printed):
    `Trainer.fit` on the training corpus for each zoo tagger (both Switch
    modes, BiLSTM with the cosine loss), then `search_threshold` and `test`;
    the train CLI with its default -arc biLSTMCRF and predict on its
-   checkpoint; each zoo tagger card against CPU.
+   checkpoint; each zoo tagger card against CPU;
+9. the audio front-end: three synthetic broadcasts of 60 + 150 + 300 s with
+   pauses between sentences of 2-12 s, their JSON transcripts and a flat
+   label file (about 10 % boundaries); the training extractor on cuda under
+   MTS_RANDOM_ENCODER_WEIGHTS=1 with the default flags (energy VAD, then
+   x-vector), the same with MTS_VAD_WEIGHTS naming a random CRDNN npz,
+   `-ust --prosodic_feats`, and `-vd` with --mfcc, --wav2vec (K1's count set
+   to 0 before it and read after it), --ecapa, --openl3 and --CREPE, each
+   with its units, wall, audio-min/s and peak memory, the label files of runs
+   that share a unitization required equal; `predict -ee` on a random
+   prosodic BiLSTM (embedding 167); one profiled encode per encoder; each
+   encoder, the energy VAD and the CRDNN card against CPU on a 30-second
+   document.
 
 The line before the last is a JSON object with one entry per kernel; the last
 line is {"ok": true, "device": {...}}. Working files go to build/chip_smoke/.
@@ -78,7 +90,7 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, "build", "chip_smoke")
 SR = 16000
-MAIN_SECONDS = (60.0, 150.0, 300.0)  # the audio path's three documents
+MAIN_SECONDS = (60.0, 150.0, 300.0)  # the audio path's and the front-end's three documents
 # the long-document path: units per embedding file, and the taggers served
 DOC_UNITS = (3600, 3600, 3100, 2500, 2048, 1500, 900, 400, 500, 300)
 TAGGERS = ("Transformer", "RecurrentLongT5", "BiLSTMRestrictedMHA")
@@ -462,10 +474,11 @@ def write_wavs(audio_dir, seconds, seed):
         save_wav(os.path.join(audio_dir, f"doc{d}.wav"), sig.astype(np.float32), SR)
 
 
-def write_checkpoint(path, hyp_path, calibrate_on=None, architecture="BiLSTM"):
+def write_checkpoint(path, hyp_path, calibrate_on=None, architecture="BiLSTM",
+                     embedding_dim=768, encoder="wav2vec_mean"):
     """A random checkpoint (seed 0) at the flagship width: embedding 768,
     h 256, 2 layers, 8 heads, window 120, FocalLoss. With `calibrate_on`, a
-    [units, 768] embedding array, the head's bias is shifted so that the
+    [units, embedding_dim] array, the head's bias is shifted so that the
     median unit of it scores 0.5: random scores would otherwise sit all on
     one side of the threshold, and predict would find no segments or only
     segments."""
@@ -475,7 +488,7 @@ def write_checkpoint(path, hyp_path, calibrate_on=None, architecture="BiLSTM"):
     from multimodaltopicsegmentation_torch.models.base import TaggerConfig
     from multimodaltopicsegmentation_torch.train import checkpoints
 
-    cfg = TaggerConfig(embedding_dim=768, hidden_dim=256, num_layers=2, nheads=8,
+    cfg = TaggerConfig(embedding_dim=embedding_dim, hidden_dim=256, num_layers=2, nheads=8,
                        attention_window=120, loss_fn="FocalLoss")
     tagger = registry.build(architecture, cfg, torch.Generator().manual_seed(0)).eval()
     if calibrate_on is not None:
@@ -485,7 +498,7 @@ def write_checkpoint(path, hyp_path, calibrate_on=None, architecture="BiLSTM"):
             tagger.classification.bias.sub_(scores.median())
     checkpoints.save(path, tagger.to_jax_params(), cfg, architecture)
     with open(hyp_path, "w") as f:
-        f.write(f"Sentence encoder: wav2vec_mean\nNeural architecture: {architecture}\n"
+        f.write(f"Sentence encoder: {encoder}\nNeural architecture: {architecture}\n"
                 "Hidden units: 256\nNumber of layers: 2\n")
     return tagger
 
@@ -1607,6 +1620,305 @@ def zoo_phase(docs, emb_dir, labs_file, split_file):
     log(f"[zoo] flash launches over the phase: {launches}")
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the audio front-end and the training extractor
+# ---------------------------------------------------------------------------
+
+# the extractor runs: (tag, flags, CRDNN VAD); runs of one unitization share labels
+FRONT_RUNS = (("vad_xvector", [], False), ("crdnn_vad_xvector", [], True),
+              ("sentences_prosodic", ["-ust", "--prosodic_feats"], False),
+              ("uniform_mfcc", ["-vd", "--mfcc"], False),
+              ("uniform_wav2vec", ["-vd", "--wav2vec"], False),
+              ("uniform_ecapa", ["-vd", "--ecapa"], False),
+              ("uniform_openl3", ["-vd", "--openl3"], False),
+              ("uniform_crepe", ["-vd", "--CREPE"], False))
+# units CREPE's card-against-cpu check takes from the 30-second document (it
+# costs some 10 ms of CPU per 10 ms frame); the other encoders take them all
+CREPE_CHECK_UNITS = 10
+
+
+def write_speech_corpus(root, seconds, seed):
+    """Synthetic broadcasts with pauses: sentences of 2-12 s (a carrier tone
+    per topic, 0.2-0.6 s of near-silence after each), their JSON transcripts
+    and a flat labs.npy with about 10 % boundaries.
+    -> (audio dir, transcript dir, labels file)."""
+    import numpy as np
+
+    from multimodaltopicsegmentation_torch.utils.audio import save_wav
+
+    rng = np.random.default_rng(seed)
+    audio_dir, data_dir = os.path.join(root, "audio"), os.path.join(root, "data")
+    os.makedirs(audio_dir)
+    os.makedirs(data_dir)
+    labs = []
+    for d, dur in enumerate(seconds):
+        sig = (0.003 * rng.standard_normal(int(dur * SR))).astype(np.float32)
+        sentences, t, tone = [], 0.0, 150.0
+        while t < dur - 1.0:
+            length = float(min(rng.uniform(2.0, 12.0), dur - t))
+            voiced = max(length - rng.uniform(0.2, 0.6), 0.5)
+            a, b = int(t * SR), int(min(t + voiced, dur) * SR)
+            vibrato = 1.0 + 0.02 * np.sin(2 * np.pi * 5.0 * np.arange(b - a) / SR)
+            sig[a:b] += 0.4 * np.sin(2 * np.pi * tone * np.cumsum(vibrato) / SR)
+            sentences.append({"sentence": f"s{len(sentences)}", "start": round(t, 3),
+                              "end": round(t + length, 3)})
+            boundary = rng.random() < 0.1
+            labs.append(int(boundary))
+            if boundary:
+                tone = 150.0 + 40.0 * rng.integers(0, 6)
+            t += length
+        labs[-1] = 1
+        save_wav(os.path.join(audio_dir, f"doc{d}.wav"), sig, SR)
+        with open(os.path.join(data_dir, f"doc{d}.json"), "w") as f:
+            json.dump(sentences, f)
+    labs_file = os.path.join(root, "labs.npy")
+    np.save(labs_file, np.asarray(labs))
+    return audio_dir, data_dir, labs_file
+
+
+def write_vad_weights(path, audio):
+    """A random CRDNN (port's random_params, seed 0) whose posteriors spread
+    around 0.5: random weights keep every posterior within 0.01 of it, where
+    no span forms, so the head is scaled by 300 and its bias set so that the
+    median frame of `audio` scores 0.5."""
+    import numpy as np
+    import torch
+
+    from multimodaltopicsegmentation_torch.encoders import crdnn_vad
+
+    params = crdnn_vad.random_params(torch.Generator().manual_seed(0))
+    params["out_w"] = params["out_w"] * 300.0
+    median = float(np.median(crdnn_vad.posteriors(crdnn_vad.build(params, "cuda"), audio, SR)))
+    params["out_b"] = (params["out_b"] - np.log(median / (1.0 - median))).astype(np.float32)
+    np.savez(path, **params)
+
+
+def frontend_runs(k1, corpus):
+    """The training extractor once per flag set on cuda; -> K1 launches of
+    the --wav2vec run."""
+    import pickle
+
+    import numpy as np
+    import torch
+
+    from multimodaltopicsegmentation_torch.cli.extract_embeddings import cli_main
+
+    audio_dir, data_dir, labs_file = corpus
+    audio_min = sum(MAIN_SECONDS) / 60.0
+    labels, k1_launches = {}, 0
+    for tag, flags, crdnn in FRONT_RUNS:
+        if crdnn:
+            os.environ["MTS_VAD_WEIGHTS"] = os.path.join(WORK, "vad.npz")
+        out = os.path.join(WORK, f"front_{tag}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        k1.launches = 0
+        t0 = time.perf_counter()
+        cli_main(["-data", data_dir, "-audio", audio_dir, "-lab", labs_file, "-od", out + "/emb",
+                  "-lod", out + "/labs", "--device", "cuda"] + flags)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        os.environ.pop("MTS_VAD_WEIGHTS", None)
+        launches = k1.launches
+        if "--wav2vec" in flags:
+            if launches == 0:
+                raise RuntimeError("the --wav2vec extraction launched no K1")
+            k1_launches = launches
+        elif launches:
+            raise RuntimeError(f"{tag}: {launches} K1 launches outside wav2vec2")
+        with open(os.path.join(out, "labs", "labs_dict.pkl"), "rb") as f:
+            labs = pickle.load(f)
+        with open(os.path.join(out, "labs", "segments.pkl"), "rb") as f:
+            segments = pickle.load(f)
+        units = sum(len(v) for v in labs.values())
+        for d in range(len(MAIN_SECONDS)):
+            name = f"doc{d}.npy"
+            path = os.path.join(out, "emb", name)
+            emb = np.load(path if os.path.exists(path) else os.path.join(out, "emb", "_mean", name))
+            if len(emb) != len(labs[f"doc{d}"]) or not np.isfinite(emb).all() or not labs[f"doc{d}"][-1]:
+                raise RuntimeError(f"{tag}: doc{d} has {len(emb)} rows for {len(labs[f'doc{d}'])} "
+                                   f"labels, finite {np.isfinite(emb).all()}")
+        unitization = ("CRDNN VAD" if crdnn else "sentence" if "-ust" in flags
+                       else "uniform" if "-vd" in flags else "energy VAD")
+        same = labels.setdefault(unitization, (segments, labs)) == (segments, labs)
+        if not same:
+            raise RuntimeError(f"{tag}: segments.pkl/labs_dict.pkl differ from the first "
+                               f"{unitization} run")
+        log(f"[front-end] {tag}: {units} units, {wall:.3f} s = {audio_min / wall:.3f} "
+            f"audio-min/s, peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+            f"GiB, K1 launches {launches}, {emb.shape[1]}-d; segments.pkl/labs_dict.pkl "
+            f"equal to the first {unitization} run: {same}")
+    return k1_launches
+
+
+def frontend_predict(corpus):
+    """predict -ee with the prosodic encoder on a random BiLSTM (embedding 167)."""
+    import pickle
+
+    import numpy as np
+    import torch
+
+    from multimodaltopicsegmentation_torch.cli.predict import cli_main
+
+    ckpt = os.path.join(WORK, "ckpt_prosodic", "best_model")
+    hyp = os.path.join(WORK, "results_prosodic.txt")
+    common = ["-ee", "-hyp", hyp, "-model", ckpt, "-ui", "1.0", "-th", "0.5", "--device", "cuda"]
+    write_checkpoint(ckpt, hyp, embedding_dim=167, encoder="prosodic")
+    warm = os.path.join(WORK, "emb_prosodic_warm")
+    cli_main(common + ["-af", os.path.join(WORK, "audio_warm"), "-ef", warm,
+                       "-exp", os.path.join(WORK, "exp_prosodic_warm")])
+    write_checkpoint(ckpt, hyp, np.load(os.path.join(warm, "doc0.npy")), embedding_dim=167,
+                     encoder="prosodic")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    exp = os.path.join(WORK, "exp_prosodic")
+    cli_main(common + ["-af", corpus[0], "-ef", os.path.join(WORK, "emb_prosodic"), "-exp", exp])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with open(os.path.join(exp, "results.pkl"), "rb") as f:
+        results = pickle.load(f)
+    for d, dur in enumerate(MAIN_SECONDS):
+        tags = results.get(f"doc{d}.npy")
+        if tags is None or len(tags) != int(dur):
+            raise RuntimeError(f"prosodic predict: doc{d} got {tags and len(tags)} tags")
+    found = sum(sum(t) for t in results.values())
+    log(f"[front-end] predict -ee prosodic: {sum(MAIN_SECONDS) / 60:.2f} audio-min in "
+        f"{wall:.3f} s = {sum(MAIN_SECONDS) / 60 / wall:.3f} audio-min/s; {found} boundaries; "
+        f"{len(os.listdir(os.path.join(exp, 'audio_segments')))} segment wavs")
+
+
+def frontend_breakdown(corpus):
+    """One profiled encode of doc1 (150 s) per encoder, warmed up first:
+    its sentence units for the prosodic encoder and the x-vector, 1-s units
+    for the others; wall, device busy share and the three costliest kernels."""
+    from multimodaltopicsegmentation_torch.encoders import crepe, engine, openl3, tdnn
+    from multimodaltopicsegmentation_torch.utils.audio import load_audio
+
+    audio, _ = load_audio(os.path.join(corpus[0], "doc1.wav"))
+    with open(os.path.join(corpus[1], "doc1.json")) as f:
+        sentences = [(int(s["start"] * SR), min(int(s["end"] * SR), len(audio)))
+                     for s in json.load(f)]
+    uniform = [(i * SR, (i + 1) * SR) for i in range(len(audio) // SR)]
+    for name, build, bounds in (
+            ("prosodic", lambda: engine.ProsodicEncoder("cuda"), sentences),
+            ("x-vector", lambda: tdnn.XVectorEncoder(device="cuda"), sentences),
+            ("mfcc", lambda: engine.MFCCEncoder("cuda"), uniform),
+            ("wav2vec", lambda: engine.Wav2Vec2Encoder(device="cuda"), uniform),
+            ("ecapa", lambda: tdnn.EcapaEncoder(device="cuda"), uniform),
+            ("openl3", lambda: openl3.OpenL3Encoder(device="cuda"), uniform),
+            ("crepe", lambda: crepe.CrepeEncoder(device="cuda"), uniform)):
+        enc = build()
+        enc.encode_document(audio, bounds)  # warm-up
+        wall, busy, top = profiled(lambda: enc.encode_document(audio, bounds))
+        log_profile(f"{name} encode of doc1 ({len(bounds)} units, {len(audio) / SR / 60:.2f} "
+                    f"audio-min)", wall, busy, top[:3])
+
+
+def frontend_card_vs_cpu(check):
+    """Each encoder, the energy VAD and the CRDNN posteriors on the card and
+    on the cpu for one 30-second document: continuous outputs within
+    1e-3 + 1e-5 |value|; VAD spans of equal count, edges within one 10 ms
+    frame; prosodic vectors: fewer than 1 % of pYIN frames in another state,
+    the six f0/pause/voicing columns and the pitch jump exempt on units where
+    a state differs."""
+    import numpy as np
+    import torch
+
+    from multimodaltopicsegmentation_torch.dsp import vad
+    from multimodaltopicsegmentation_torch.dsp.pyin import pyin
+    from multimodaltopicsegmentation_torch.encoders import crdnn_vad, engine
+    from multimodaltopicsegmentation_torch.encoders.engine_util import pad_units
+    from multimodaltopicsegmentation_torch.utils.audio import load_audio
+
+    audio, _ = load_audio(os.path.join(check[0], "doc0.wav"))
+    with open(os.path.join(check[1], "doc0.json")) as f:
+        sentences = [(int(s["start"] * SR), min(int(s["end"] * SR), len(audio)))
+                     for s in json.load(f)]
+    uniform = [(i * SR, (i + 1) * SR) for i in range(len(audio) // SR)]
+    failed = []
+
+    def close(label, got, want):
+        err = float(np.abs(got - want).max())
+        ok = bool(np.isfinite(got).all() and (np.abs(got - want) <= 1e-3 + 1e-5 * np.abs(want)).all())
+        log(f"[front-end card vs cpu] {label}: max_abs_err {err:.3e} "
+            f"(atol 1e-3 + rtol 1e-5): {'ok' if ok else 'FAILED'}")
+        if not ok:
+            failed.append(label)
+
+    spans = [vad.get_speech_segments(audio, SR, device=d) for d in ("cuda", "cpu")]
+    edges = max((abs(a - b) for x, y in zip(*spans) for a, b in zip(x, y)), default=0.0)
+    ok = len(spans[0]) == len(spans[1]) and edges <= 0.01 + 1e-9
+    log(f"[front-end card vs cpu] energy VAD: {len(spans[0])} / {len(spans[1])} spans, "
+        f"edges within {edges:.3f} s (0.01): {'ok' if ok else 'FAILED'}")
+    if not ok:
+        failed.append("energy VAD")
+    params = crdnn_vad.load_npz(os.path.join(WORK, "vad.npz"))
+    close("CRDNN posteriors", *(crdnn_vad.posteriors(crdnn_vad.build(params, d), audio, SR)
+                                for d in ("cuda", "cpu")))
+
+    # prosodic: pYIN states first, then the vectors
+    units, lens = pad_units(audio, sentences, bucket=True)
+    flags, f0s = [], []
+    for d in ("cuda", "cpu"):
+        f0, flag, _, _ = pyin(torch.from_numpy(units).to(d), SR, with_raw_yin=True)
+        f0s.append(f0.cpu().numpy())
+        flags.append(flag.cpu().numpy())
+    T = flags[0].shape[1]
+    valid = np.arange(T)[None, :] < (1 + lens[:, None] // 512)
+    differ = valid & ((flags[0] != flags[1]) | ~((f0s[0] == f0s[1]) | np.isnan(f0s[0]) & np.isnan(f0s[1])))
+    share = differ.sum() / valid.sum()
+    got, want = (np.stack(engine.ProsodicEncoder(d).encode_document(audio, sentences))
+                 for d in ("cuda", "cpu"))
+    # a unit whose states differ is exempt in its six f0/pause/voicing columns
+    # and in its pitch jump, which divides by that unit's pYIN f0
+    exempt = differ.any(axis=1)
+    bad = np.abs(got - want) > 1e-3 + 1e-5 * np.abs(want)
+    bad[np.ix_(exempt, list(range(6)) + [166])] = False
+    ok = share < 0.01 and not bad.any() and np.isfinite(got).all()
+    log(f"[front-end card vs cpu] prosodic: {differ.sum()} of {valid.sum()} pYIN frames in another "
+        f"state ({100 * share:.3f} %, limit 1 %), {exempt.sum()} of {len(exempt)} units exempt "
+        f"in f0/pause/voicing; max_abs_err {np.abs(got - want)[:, 6:].max():.3e} over the other "
+        f"columns: {'ok' if ok else 'FAILED'}")
+    if not ok:
+        failed.append("prosodic")
+
+    constructors = {"mfcc": lambda d: engine.MFCCEncoder(d),
+                "wav2vec": lambda d: engine.Wav2Vec2Encoder(device=d)}
+    from multimodaltopicsegmentation_torch.encoders import crepe, openl3, tdnn
+
+    constructors.update({"x-vectors": lambda d: tdnn.XVectorEncoder(device=d),
+                     "ecapa": lambda d: tdnn.EcapaEncoder(device=d),
+                     "openl3": lambda d: openl3.OpenL3Encoder(device=d),
+                     "crepe": lambda d: crepe.CrepeEncoder(device=d)})
+    for name, build in constructors.items():
+        bounds = uniform[:CREPE_CHECK_UNITS] if name == "crepe" else uniform
+        outs = [np.concatenate([np.atleast_2d(u) for u in build(d).encode_document(audio, bounds)])
+                for d in ("cuda", "cpu")]
+        close(f"{name} ({len(bounds)} units)", *outs)
+    if failed:
+        raise RuntimeError(f"card and cpu disagree for {failed}")
+
+
+def frontend_phase(k1):
+    """Phase 9; -> K1 launches of the --wav2vec extraction."""
+    from multimodaltopicsegmentation_torch.utils.audio import load_audio
+
+    t = time.perf_counter()
+    corpus = write_speech_corpus(os.path.join(WORK, "front_corpus"), MAIN_SECONDS, seed=6)
+    check = write_speech_corpus(os.path.join(WORK, "front_check"), (30.0,), seed=7)
+    write_vad_weights(os.path.join(WORK, "vad.npz"),
+                      load_audio(os.path.join(check[0], "doc0.wav"))[0])
+    launches = 0
+    for what, run in (("extractor runs", lambda: frontend_runs(k1, corpus)),
+                      ("predict -ee prosodic", lambda: frontend_predict(corpus)),
+                      ("breakdown", lambda: frontend_breakdown(corpus)),
+                      ("card vs cpu", lambda: frontend_card_vs_cpu(check))):
+        launches = run() or launches
+        log(f"[front-end] {what}: {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1672,6 +1984,9 @@ def main() -> int:
     t = time.perf_counter()
     zoo_phase(docs, emb_dir, labs_file, split_file)
     log(f"[phase] tagger zoo: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    launches["instance_norm_gelu"] += frontend_phase(k1.instance_norm_gelu)
+    log(f"[phase] front-end: {time.perf_counter() - t:.1f} s")
 
     for name, r in results.items():
         r["launches"] = launches[name]

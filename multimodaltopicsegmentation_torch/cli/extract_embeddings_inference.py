@@ -1,9 +1,10 @@
 """Inference-time feature extraction (no transcripts, no labels).
 
 Counterpart of the JAX package's cli/extract_embeddings_inference.py: uniform
-or adaptive-uniform (total/100) unitization, one batched device encode per
-document, and the pooling-variant output directories. Called in-process by
-cli/predict.py.
+or adaptive-uniform (total/100) unitization, every encoder of the training
+extractor (OpenL3 as its mel256 inference variant), one batched device
+encode per document, `{doc}.npy` or the pooling-variant folders. Called
+in-process by cli/predict.py.
 
 Replicated quirk: each unit is exactly ONE second long starting at
 `interval * i` (reference extract_embeddings_inference.py:245-248), including
@@ -11,58 +12,30 @@ under adaptive intervals, since predict's `segment_audio` depends on that
 stride contract.
 
 Run: python -m multimodaltopicsegmentation_torch.cli.extract_embeddings_inference
-       -audio <wav dir> -od <out dir> --wav2vec [--device cpu]
+       -audio <wav dir> -od <out dir> [--wav2vec | --prosodic_feats | ...]
+       [--device cpu]
 """
 from __future__ import annotations
 
 import argparse
 import os
-import pickle
 import re
 import sys
-
-import numpy as np
-import torch
 
 from ..core.torch_setup import resolve_device
 from ..dsp.unitize import inference_uniform_units, to_sample, to_time
 from ..encoders.engine import build_encoder
-from ..ops.pooling import POOLING_VARIANTS, pool
 from ..utils.audio import prefetch_audio
-
-POOL_DIRS = ("_mean", "_max", "_no_reduction", "_mean_std", "_max_std", "_last", "_delta_gap")
-
-
-def write_frame_level(out_directory: str, doc_name: str, unit_frames: list, device="cpu"):
-    """Write the pooling variants of a document (segment reductions on
-    `device`) and its raw frames under _no_reduction."""
-    for d in POOL_DIRS:
-        os.makedirs(os.path.join(out_directory, d), exist_ok=True)
-
-    with open(os.path.join(out_directory, "_no_reduction", doc_name) + ".pkl", "wb") as f:
-        pickle.dump(unit_frames, f)
-
-    frames = torch.from_numpy(np.concatenate(unit_frames, axis=0)).to(device)
-    seg_ids = torch.from_numpy(
-        np.repeat(np.arange(len(unit_frames)), [len(u) for u in unit_frames])
-    ).to(device)
-    n = len(unit_frames)
-    for variant in POOLING_VARIANTS:
-        arr = pool(frames, seg_ids, n, variant).cpu().numpy()
-        np.save(os.path.join(out_directory, variant, doc_name), arr)
+from .extract_embeddings import existing_outputs, write_document
 
 
 def main(args):
     verbose = args.verbose
     device = resolve_device(getattr(args, "device", "cuda"))
     os.makedirs(args.out_directory, exist_ok=True)
-    # frame-level outputs live in the pooling subdirs; scan those too so
-    # --continue_from_check (on by default from predict) resumes
-    existent_files = [f for f in os.listdir(args.out_directory) if f.endswith(".npy")]
-    mean_dir = os.path.join(args.out_directory, "_mean")
-    if os.path.exists(mean_dir):
-        existent_files += os.listdir(mean_dir)
-
+    existent_files = existing_outputs(args.out_directory)
+    # inference uses the mel256/music OpenL3 variant (reference quirk)
+    args._inference_variant = True
     encoder = build_encoder(args, device)
 
     audio_paths, filenames = [], []
@@ -108,7 +81,7 @@ def main(args):
         if verbose:
             print(f"Encoding {len(bounds)} units of {path}")
         unit_embs = encoder.encode_document(audio, bounds)
-        write_frame_level(args.out_directory, filenames[index], unit_embs, device)
+        write_document(encoder, args.out_directory, filenames[index], unit_embs, device)
 
 
 class MyParser(argparse.ArgumentParser):
@@ -122,9 +95,16 @@ def build_parser():
     parser = MyParser(description="Compute audio embeddings for inference")
     parser.add_argument("--audio_directory", "-audio", type=str)
     parser.add_argument("--out_directory", "-od", default="results", type=str)
+    parser.add_argument("--ecapa", "-e", action="store_true")
     parser.add_argument("--verbose", "-vb", action="store_true")
+    parser.add_argument("--vad", "-vd", action="store_false")
+    parser.add_argument("--speechbrain", "-sb", action="store_true")
     parser.add_argument("--uniform_interval", "-ui", type=float, default=1.0)
+    parser.add_argument("--openl3", action="store_true")
     parser.add_argument("--wav2vec", action="store_true")
+    parser.add_argument("--CREPE", action="store_true")
+    parser.add_argument("--prosodic_feats", action="store_true")
+    parser.add_argument("--mfcc", action="store_true")
     parser.add_argument("--continue_from_check", "-cont", action="store_true")
     parser.add_argument("--adaptive_uniform_segmentation", "-aus", action="store_true")
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")

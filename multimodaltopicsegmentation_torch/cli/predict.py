@@ -46,8 +46,16 @@ class BasePredictor:
                           adaptive_uniform=False, verbose=False, continue_from_check=True):
         from . import extract_embeddings_inference as eei
 
+        enc = encoder.lower()
         args = SimpleNamespace(
-            wav2vec=encoder.lower().startswith("wav2vec"),
+            vad=False,
+            speechbrain=True,
+            ecapa=enc.startswith("ecapa"),
+            openl3=enc.startswith("openl3"),
+            wav2vec=enc.startswith("wav2vec"),
+            CREPE=enc.startswith("crepe"),
+            prosodic_feats=enc.startswith("prosodic"),
+            mfcc=enc.startswith("mfcc"),
             audio_directory=audio_directory,
             out_directory=out_directory,
             uniform_interval=uniform_interval,

@@ -17,7 +17,11 @@ def test_port_modules_import_no_jax():
         "for new in ('ops.flash_attention', 'ops.attention', 'models.transformers',\n"
         "            'models.registry', 'ops.losses', 'eval.metrics', 'train.data',\n"
         "            'train.loop', 'cli.train_fit', 'ops.crf', 'ops.cosine_loss',\n"
-        "            'models.taggers'):\n"
+        "            'models.taggers', 'utils.profiling', 'dsp.unitize', 'dsp.spectral',\n"
+        "            'dsp.yin', 'dsp.pyin', 'dsp.prosody', 'dsp.vad', 'encoders.crdnn_vad',\n"
+        "            'encoders.tdnn', 'encoders.openl3', 'encoders.crepe', 'encoders.engine',\n"
+        "            'cli.extract_embeddings', 'cli.extract_embeddings_inference',\n"
+        "            'cli.predict'):\n"
         "    assert pkg.__name__ + '.' + new in names, new\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
