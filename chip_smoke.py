@@ -66,7 +66,20 @@ Phases (any failure exits non-zero, and no result line is printed):
    that share a unitization required equal; `predict -ee` on a random
    prosodic BiLSTM (embedding 167); one profiled encode per encoder; each
    encoder, the energy VAD and the CRDNN card against CPU on a 30-second
-   document.
+   document;
+10. training completeness: `Trainer(device_epochs=True)` beside the host
+   loop (same seed, dropout 0.1) for Transformer and RecurrentLongT5 at the
+   flagship width over 2 train batches of 5 x 3600 and 1 valid batch, 6
+   epochs in windows of 3: equal decisions and losses (rtol 1e-5), the flash
+   launches of every step and validation pass counted, the Transformer's
+   windows enqueued under torch's sync debug mode "error" (RecurrentLongT5's
+   synchronizing calls counted by caller), wall per epoch of both loops and
+   one profiled window fit each; `GridTrainer` over the paper's 3 x 3
+   dropout grid on the replication BiLSTM (10 x 3600, 3 epochs),
+   configurations 0, 4 and 8 against serial `Trainer` runs, the grid's wall
+   against serial fits', peak memory; the train CLI with `-pg` (a 2 x 2
+   grid), `-de` (Transformer), `-pca` and `--infer` on the first run's
+   folder, each with finite Pk / F1 / WD in results.txt.
 
 The line before the last is a JSON object with one entry per kernel; the last
 line is {"ok": true, "device": {...}}. Working files go to build/chip_smoke/.
@@ -1919,6 +1932,264 @@ def frontend_phase(k1):
     return launches
 
 
+# -- phase 10: training completeness (device windows, the dropout grid, the CLI flags) --
+
+WINDOW_TAGGERS = ("Transformer", "RecurrentLongT5")
+WINDOW_EPOCHS, WINDOW = 6, 3
+GRID_RATES = tuple((di, do) for di in (0.0, 0.2, 0.5) for do in (0.0, 0.2, 0.5))
+GRID_EPOCHS = 3
+
+
+def _fit_wall(trainer, train_batches, valid_batches):
+    """`trainer.fit` synchronised on both sides -> (params, history, wall s,
+    peak device memory GiB)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, history = trainer.fit(train_batches, valid_batches)
+    torch.cuda.synchronize()
+    return params, history, time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 2**30
+
+
+def _same_fit(what, host, device, rtol):
+    """Decisions equal (epochs, snapshot name, final rate) and losses within
+    `rtol` relative, or raise."""
+    (th, hh), (td, hd) = host, device
+    names = [os.path.basename(t.best_model_path) for t in (th, td)]
+    rates = [t.opt.param_groups[0]["lr"] for t in (th, td)]
+    if len(hh) != len(hd) or names[0] != names[1] or rates[0] != rates[1]:
+        raise RuntimeError(f"{what}: host and device decide apart: {len(hh)} / {len(hd)} epochs, "
+                           f"snapshots {names}, rates {rates}")
+    err = 0.0
+    for a, b in zip(hh, hd):
+        for key in ("training_loss", "val_loss"):
+            err = max(err, abs(a[key] - b[key]) / abs(a[key]))
+    if not err <= rtol:
+        raise RuntimeError(f"{what}: losses {err:.3e} apart (rtol {rtol}): {hh} against {hd}")
+    return err
+
+
+def _sync_checked_windows(mode):
+    """Make each device window enqueue under torch.cuda.set_sync_debug_mode(mode)
+    ("error": a synchronizing call inside it raises; "warn": it warns), the
+    packed pull after it outside. -> a function that undoes it."""
+    import torch
+
+    from multimodaltopicsegmentation_torch.train import device_fit
+
+    make = device_fit.make_fit_window
+
+    def checked(*args, **kwargs):
+        fit_window = make(*args, **kwargs)
+
+        def run(*a):
+            torch.cuda.set_sync_debug_mode(mode)
+            try:
+                return fit_window(*a)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        return run
+
+    device_fit.make_fit_window = checked
+    return lambda: setattr(device_fit, "make_fit_window", make)
+
+
+def window_fits(docs):
+    """(a) `Trainer(device_epochs=True)` beside the host loop, same seed,
+    dropout 0.1, for each of WINDOW_TAGGERS: 2 uniform train batches of
+    5 x 3600, 1 valid batch, WINDOW_EPOCHS epochs in windows of WINDOW.
+    -> {kernel name: launches of the device fits}."""
+    import dataclasses
+    import warnings
+
+    import torch
+
+    from multimodaltopicsegmentation_torch.models import transformers as TT
+    from multimodaltopicsegmentation_torch.train.data import batches, pad_batch
+    from multimodaltopicsegmentation_torch.train.loop import Trainer
+
+    counters = flash_counters()
+    total = dict.fromkeys(counters, 0)
+    pad = dict(crf=False, truncate=True, truncate_value=3600)
+    train_batches = list(batches(docs, 5, **pad))
+    valid_batches = [pad_batch(docs[7:], **pad)]
+    nb, nv = len(train_batches), len(valid_batches)
+    cfg = dataclasses.replace(training_config(), dropout_in=0.1, dropout_out=0.1)
+    os.environ["MTS_DEVICE_EPOCH_WINDOW"] = str(WINDOW)
+    for arch in WINDOW_TAGGERS:
+        # one profiled window first: its busy share, and the warm-up (the
+        # allocator, first uses) that neither timed fit then pays for
+        trainer = Trainer(arch, cfg, lr=1e-3, max_epochs=WINDOW, patience=20,
+                          check_dir=os.path.join(WORK, f"window_{arch}_profiled"), seed=0,
+                          device="cuda", device_epochs=True)
+        t0 = time.perf_counter()
+        busy = profiled(lambda: trainer.fit(train_batches, valid_batches))
+        profiled_s = time.perf_counter() - t0  # with the profiler's start and teardown
+        runs, walls = {}, {}
+        for mode in ("host", "device"):
+            trainer = Trainer(arch, cfg, lr=1e-3, max_epochs=WINDOW_EPOCHS, patience=20,
+                              check_dir=os.path.join(WORK, f"window_{arch}_{mode}"), seed=0,
+                              device="cuda", device_epochs=mode == "device")
+            for c in counters.values():
+                c.launches = 0
+            # the Transformer's windows must enqueue without one synchronizing call
+            # (torch raises on one); RecurrentLongT5's are counted by where they come from
+            undo = _sync_checked_windows("error" if arch == "Transformer" else "warn")
+            try:
+                with warnings.catch_warnings(record=True) as caught:
+                    warnings.simplefilter("always")
+                    _, history, wall, peak = _fit_wall(trainer, train_batches, valid_batches)
+            finally:
+                undo()
+            syncs = {}
+            for w in caught:
+                if "synchronizing CUDA operation" in str(w.message):
+                    where = f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}"
+                    syncs[where] = syncs.get(where, 0) + 1
+            runs[mode], walls[mode] = (trainer, history), wall
+            launches = {name: c.launches for name, c in counters.items()}
+        remat = [m.last_remat for m in trainer.tagger.modules()
+                 if isinstance(m, (TT.BertStyleEncoder, TT.LongT5Encoder))]
+        fwd, dq, dqb, dkv = STEP_LAUNCHES[arch]
+        steps, evals = WINDOW_EPOCHS * nb, WINDOW_EPOCHS * nv
+        want = dict(zip(counters, (steps * fwd * (2 if any(remat) else 1) + evals * fwd,
+                                   steps * dq, steps * dqb, steps * dkv)))
+        if launches != want:
+            raise RuntimeError(f"{arch} device windows: launches {launches}, expected {want}")
+        for name in total:
+            total[name] += launches[name]
+        err = _same_fit(f"{arch} device windows", runs["host"], runs["device"], 1e-5)
+        losses = [h["training_loss"] for h in runs["device"][1]]
+        if not all(map(math.isfinite, losses)):
+            raise RuntimeError(f"{arch} device windows: losses {losses}")
+        log(f"[complete] {arch} Trainer(device_epochs=True) at 768 -> 256 x 2, 8 heads, window 120, "
+            f"dropout 0.1: {WINDOW_EPOCHS} epochs of {nb} x (5 x 3600) + {nv} valid batch in "
+            f"windows of {WINDOW}: {walls['device'] / WINDOW_EPOCHS:.4f} s per epoch against "
+            f"{walls['host'] / WINDOW_EPOCHS:.4f} s in the host loop; losses {err:.3e} apart "
+            f"(rtol 1e-5), same snapshot {os.path.basename(runs['device'][0].best_model_path)}; "
+            f"launches {launches}; synchronizing calls inside the windows, by caller: {syncs}; peak device "
+            f"memory {peak:.2f} GiB")
+        log_profile(f"{arch} device window fit of {WINDOW} epochs, set-up included (the profiled "
+                    f"call {profiled_s:.1f} s)", *busy)
+        del runs, trainer
+        torch.cuda.empty_cache()
+    os.environ.pop("MTS_DEVICE_EPOCH_WINDOW")
+    return total
+
+
+def grid_fits(docs):
+    """(b) `GridTrainer` over the paper's dropout grid (G = 9) on the
+    replication BiLSTM (h 256 x 2, FocalLoss, Adam eps 1e-7), one train batch
+    of 10 x 3600 and one valid batch, GRID_EPOCHS epochs; configurations 0, 4
+    and 8 against serial `Trainer` runs."""
+    import dataclasses
+
+    import torch
+
+    from multimodaltopicsegmentation_torch.train.data import batches, pad_batch
+    from multimodaltopicsegmentation_torch.train.grid import GridTrainer
+    from multimodaltopicsegmentation_torch.train.loop import Trainer
+
+    pad = dict(crf=False, truncate=True, truncate_value=3600)
+    train_batches = list(batches(docs, 10, **pad))
+    valid_batches = [pad_batch(docs[7:], **pad)]
+    kw = dict(lr=1e-3, max_epochs=GRID_EPOCHS, patience=20, seed=0, device="cuda")
+    gt = GridTrainer("BiLSTM", training_config(), GRID_RATES,
+                     check_dir=os.path.join(WORK, "grid"), **kw)
+    _, histories, wall, peak = _fit_wall(gt, train_batches, valid_batches)
+    serial_wall = 0.0
+    for g in (0, 4, 8):
+        cfg = dataclasses.replace(training_config(), dropout_in=GRID_RATES[g][0],
+                                  dropout_out=GRID_RATES[g][1])
+        trainer = Trainer("BiLSTM", cfg, check_dir=os.path.join(WORK, f"grid_serial_{g}"), **kw)
+        _, history, s_wall, _ = _fit_wall(trainer, train_batches, valid_batches)
+        serial_wall += s_wall / 3
+        names = [os.path.basename(p) for p in (trainer.best_model_path, gt.best_model_paths[g])]
+        err = max(abs(a[k] - b[k]) / abs(a[k]) for a, b in zip(history, histories[g])
+                  for k in ("training_loss", "val_loss"))
+        if len(history) != len(histories[g]) or names[0] != names[1] or not err <= 1e-5:
+            raise RuntimeError(f"grid configuration {g} {GRID_RATES[g]}: {histories[g]} against the "
+                               f"serial {history}; snapshots {names}")
+        log(f"[complete] grid configuration {g} {GRID_RATES[g]}: history {err:.3e} from its serial "
+            f"run (rtol 1e-5), snapshot {names[0]} in both")
+    G = len(GRID_RATES)
+    log(f"[complete] GridTrainer BiLSTM h 256 x 2, G = {G}, {GRID_EPOCHS} epochs of 10 x 3600 + a "
+        f"valid batch: {wall:.3f} s, {wall / G:.3f} s a configuration against {serial_wall:.3f} s "
+        f"for one serial fit (mean of 3), {wall / (G * GRID_EPOCHS):.3f} s a configuration's "
+        f"epoch; peak device memory {peak:.2f} GiB")
+    del gt
+    torch.cuda.empty_cache()
+
+
+def _results(exp):
+    """results.txt's Pk, F1 and WD, which must be finite."""
+    with open(os.path.join(exp, "results.txt")) as f:
+        lines = f.read().splitlines()
+    got = {}
+    for key in ("Pk", "F1", "WD"):
+        line = [ln for ln in lines if ln.startswith(f"Mean {key} obtained is")]
+        got[key] = float(line[0].split()[4]) if line else math.nan
+    if not all(map(math.isfinite, got.values())):
+        raise RuntimeError(f"{exp}/results.txt: {got}")
+    return got
+
+
+def train_cli_flags(emb_dir, labs_file, split_file):
+    """(c) The train CLI on cuda with -pg (a 2 x 2 dropout grid on BiLSTM), -de
+    (Transformer), -pca (BiLSTM on 167 components) and --infer on the first
+    run's folder. -> {kernel name: launches}."""
+    import shutil
+
+    from multimodaltopicsegmentation_torch.cli import train_fit
+
+    counters = flash_counters()
+    for c in counters.values():
+        c.launches = 0
+    base = ["-enc", "wav2vec", "-ef", emb_dir, "-lf", labs_file, "-split", split_file, "-lr", "1e-3",
+            "-hu", "256", "-nl", "2", "-bs", "10", "-max", "2", "-pat", "2", "-loss", "FocalLoss",
+            "--device", "cuda"]
+    grid = ["-arc", "BiLSTM", "-hs", "-huss", "256", "-nlss", "2", "-diss", "0", "0.2",
+            "-doss", "0", "0.2", "-s_last"]
+    runs = (("pg", grid + ["-pg"]), ("de", ["-arc", "Transformer", "-nh", "8", "-window", "120", "-de"]),
+            ("pca", ["-arc", "BiLSTM", "-pca", "-pca_v", "167"]), ("infer", grid + ["--infer"]))
+    cwd = os.getcwd()
+    for name, flags in runs:
+        exp = os.path.join(WORK, "exp_flags_" + ("pg" if name == "infer" else name))
+        if name == "infer":
+            # --infer tests checkpoints/final=0.500.ckpt, as the JAX CLI does: the
+            # first run's chosen checkpoint under that name
+            shutil.copy(os.path.join(exp, "checkpoints", "best_model"),
+                        os.path.join(exp, "checkpoints", "final=0.500.ckpt"))
+        t0 = time.perf_counter()
+        try:
+            train_fit.cli_main(base + ["-exp", exp] + flags)
+        finally:
+            os.chdir(cwd)
+        log(f"[complete] train_fit {' '.join(flags)}: {time.perf_counter() - t0:.3f} s, "
+            f"results.txt {_results(exp)}")
+    launches = {name: c.launches for name, c in counters.items()}
+    if not (launches["flash_local_dq"] == launches["flash_local_dkv"] == 2 * 2
+            and launches["flash_local_dq_dbias"] == 0):
+        raise RuntimeError(f"train_fit -de -arc Transformer: launches {launches}")
+    return launches
+
+
+def completeness_phase(docs, emb_dir, labs_file, split_file):
+    """Phase 10; -> {kernel name: launches}."""
+    launches = {}
+    t = time.perf_counter()
+    for what, run in (("device windows", lambda: window_fits(docs)),
+                      ("dropout grid", lambda: grid_fits(docs)),
+                      ("train CLI flags", lambda: train_cli_flags(emb_dir, labs_file, split_file))):
+        for name, n in (run() or {}).items():
+            launches[name] = launches.get(name, 0) + n
+        log(f"[complete] {what}: {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1987,6 +2258,10 @@ def main() -> int:
     t = time.perf_counter()
     launches["instance_norm_gelu"] += frontend_phase(k1.instance_norm_gelu)
     log(f"[phase] front-end: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    for name, n in completeness_phase(docs, emb_dir, labs_file, split_file).items():
+        launches[name] = launches.get(name, 0) + n
+    log(f"[phase] training completeness: {time.perf_counter() - t:.1f} s")
 
     for name, r in results.items():
         r["launches"] = launches[name]

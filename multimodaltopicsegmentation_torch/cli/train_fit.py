@@ -16,10 +16,19 @@ second modality (`-arc BiLSTMLateFusion -enc2 <encoder> -ef2 <folder>`, the
 same documents and unit counts as `-ef`) and SwitchBiLSTM with each
 document's domain flag (a file name that starts with a digit is domain 1).
 
-Not ported yet, refused by name when asked for: --parallel_grid,
---device_epochs, --pipeline_stages, --sequence_shards, --expert_parallel on
-(ROADMAP.md section 1 items 13 and 14), --pca_reduce, --infer,
---both_datasets, --zero_shot_labels.
+The single-device extensions run as in the JAX CLI: `--parallel_grid`
+trains a dropout-only grid per fold through `GridTrainer` (train/grid.py;
+an ineligible grid trains serially, with JAX's warning in `logs` and on
+stderr),
+`--device_epochs` runs the epoch loop's decisions on the device
+(train/device_fit.py), `--pca_reduce` projects each fold on the principal
+components of its training units (`apply_pca`, in torch on the run's
+device), `--infer` tests `checkpoints/final=0.500.ckpt` of a finished
+experiment, `--both_datasets` merges the sibling RadioNews/NonNews corpus and
+`--zero_shot_labels` adds its labels to results.txt.
+
+Not ported yet, refused by name when asked for: --pipeline_stages,
+--sequence_shards, --expert_parallel on (ROADMAP.md section 1 item 14).
 """
 from __future__ import annotations
 
@@ -31,13 +40,15 @@ import re
 import sys
 
 import numpy as np
+import torch
 
 from ..core.torch_setup import resolve_device
 from ..models import registry
 from ..models.base import TaggerConfig
 from ..train import checkpoints as ckpt_lib
-from ..train.data import batches, load_dataset_from_precomputed
+from ..train.data import add_dataset, batches, load_dataset_from_precomputed
 from ..train.loop import Trainer
+from ..utils import profiling
 
 EMBEDDING_SIZES = {
     "prosodic": 167,
@@ -62,15 +73,9 @@ EMBEDDING_SIZES = {
 
 # flags of the JAX CLI that this port still refuses: (attribute, is it asked for, where it stands)
 _NOT_PORTED = (
-    ("parallel_grid", lambda v: bool(v), "ROADMAP.md section 1 item 13"),
-    ("device_epochs", lambda v: bool(v), "ROADMAP.md section 1 item 13"),
     ("pipeline_stages", lambda v: int(v or 0) > 1, "ROADMAP.md section 1 item 14"),
     ("sequence_shards", lambda v: int(v or 0) > 1, "ROADMAP.md section 1 item 14"),
     ("expert_parallel", lambda v: v == "on", "ROADMAP.md section 1 item 14"),
-    ("pca_reduce", lambda v: bool(v), "ROADMAP.md, left out of the training slice"),
-    ("infer", lambda v: bool(v), "ROADMAP.md, left out of the training slice"),
-    ("both_datasets", lambda v: bool(v), "ROADMAP.md, left out of the training slice"),
-    ("zero_shot_labels", lambda v: v is not None, "ROADMAP.md, left out of the training slice"),
 )
 
 
@@ -86,9 +91,11 @@ def _resolve_monitored(val_loss: float) -> float:
     return val_loss
 
 
-def infer_embedding_dim(encoder: str, encoder2=None, timing_file=None):
+def infer_embedding_dim(encoder: str, encoder2=None, timing_file=None, pca=False,
+                        pca_value=167):
     """The reference's dimension inference, '+' early-fusion sums included;
-    with `encoder2`, [dim, dim2]. A timing file adds 2 to each."""
+    with `encoder2`, [dim, dim2]; with `pca`, `pca_value` alone. A timing
+    file adds 2 to each."""
 
     def one(enc_string):
         if re.findall("sentence", enc_string.lower()):
@@ -102,9 +109,38 @@ def infer_embedding_dim(encoder: str, encoder2=None, timing_file=None):
                              "(x-vectors, openl3, mfcc, prosodic, CREPE, ecapa or wav2vec)")
 
     extra = 2 if timing_file is not None else 0
+    if pca:
+        return pca_value + extra
     if encoder2 is not None:
         return [one(encoder) + extra, one(encoder2) + extra]
     return one(encoder) + extra
+
+
+def apply_pca(train_docs, other_doc_lists, n_components: int, device="cpu"):
+    """PCA fit on the concatenated training units and applied to them and to
+    each list of `other_doc_lists` (valid, test) with the training mean, as
+    the JAX CLI's sklearn PCA: centred, float64, components from
+    `torch.linalg.eigh` of the covariance in decreasing variance, each
+    component's largest-magnitude entry made positive (sklearn's sign rule),
+    float32 out. -> (projected train docs, [projected docs per list])."""
+    x = torch.from_numpy(np.concatenate([d[0] for d in train_docs], axis=0))
+    x = x.to(device=device, dtype=torch.float64)
+    mean = x.mean(0)
+    xc = x - mean
+    _, vecs = torch.linalg.eigh(xc.T @ xc / max(len(xc) - 1, 1))
+    components = vecs.flip(-1)[:, :n_components].T  # [k, dim], decreasing variance
+    rows = torch.arange(len(components), device=components.device)
+    signs = torch.sign(components[rows, components.abs().argmax(1)])
+    components = components * signs[:, None]
+
+    def project(docs):
+        out = []
+        for emb, lab, name in docs:
+            e = torch.from_numpy(np.asarray(emb)).to(device=device, dtype=torch.float64)
+            out.append((((e - mean) @ components.T).float().cpu().numpy(), lab, name))
+        return out
+
+    return project(train_docs), [project(docs) for docs in other_doc_lists]
 
 
 def _write_grid_csv(path: str, grid: dict):
@@ -125,10 +161,15 @@ def main(args):
     registry.build(args.architecture, TaggerConfig(embedding_dim=8, embedding_dim2=8, hidden_dim=8,
                                                    num_layers=1, nheads=2, attention_window=4))
 
-    assert not os.path.exists(args.experiment_name), (
-        "The name of this experiment has already been used: please change "
-        "experiment name or delete {} to use this name".format(args.experiment_name))
-    os.makedirs(args.experiment_name)
+    if args.infer:
+        assert os.path.exists(args.experiment_name), (
+            "If using pre-trained model to infer only, the given folder must "
+            "exist and include the checkpoint subfolder with trained weights")
+    else:
+        assert not os.path.exists(args.experiment_name), (
+            "The name of this experiment has already been used: please change "
+            "experiment name or delete {} to use this name".format(args.experiment_name))
+        os.makedirs(args.experiment_name)
 
     test = args.dataset == "BBC" or args.standard_split is not None
     folds = load_dataset_from_precomputed(
@@ -153,6 +194,10 @@ def main(args):
             mask_probability=args.mask_probability,
             split=args.standard_split,
         )
+        if args.both_datasets:
+            folds2 = add_dataset(args, folds2, fold2=True)
+    if args.both_datasets:
+        folds = add_dataset(args, folds)
     val_folder = args.standard_split is not None
     os.chdir(args.experiment_name)
 
@@ -187,6 +232,13 @@ def main(args):
     for index, fold in enumerate(folds):
         train_docs, valid_docs, test_docs = split_fold(fold)
         train2, valid2, test2 = split_fold(folds2[index]) if double else (None, None, None)
+        if args.pca_reduce:
+            others = [d for d in (valid_docs, test_docs) if d is not None]
+            train_docs, projected = apply_pca(train_docs, others, args.pca_value, device)
+            projected = iter(projected)
+            if valid_docs is not None:
+                valid_docs = next(projected)
+            test_docs = next(projected)
         bs = args.batch_size
         test_batches = make_batches(test_docs, test2, 1)
         if not test_batches:
@@ -228,8 +280,8 @@ def main(args):
         f.write("Training started all right...\n")
 
     embedding_dim = infer_embedding_dim(args.encoder, args.encoder2 if double else None,
-                                        args.timing_file)
-    emb_dim, emb_dim2 = embedding_dim if double else (embedding_dim, 0)
+                                        args.timing_file, args.pca_reduce, args.pca_value)
+    emb_dim, emb_dim2 = embedding_dim if isinstance(embedding_dim, list) else (embedding_dim, 0)
 
     monitor = "training_loss" if args.no_validation else "val_loss"
     best_results = {"F1": 0, "Pk": 1, "WD": 1}
@@ -239,6 +291,70 @@ def main(args):
         float("inf") if args.metric in ("WD", "Pk") or not args.search_threshold else 0)
     best_hu = best_nl = best_dropin = best_dropout = None
     confidence = {}
+
+    def tagger_config(hu, nl, d_in, d_out):
+        return TaggerConfig(
+            embedding_dim=emb_dim,
+            embedding_dim2=emb_dim2,
+            hidden_dim=hu,
+            num_layers=nl,
+            tagset_size=2,
+            bidirectional=args.unidirectional,  # store_false flag (reference quirk)
+            lstm=args.NoLSTM,  # store_false flag
+            dropout_in=d_in,
+            dropout_out=d_out,
+            loss_fn=args.loss_function,
+            nheads=args.number_heads,
+            attention_window=args.self_attention_window,
+            positional_encoding=args.positional_encoding,
+            switch=args.switch,
+            cosine_loss=args.cosine_loss,
+        )
+
+    # --parallel_grid: every dropout configuration of a fold through one
+    # GridTrainer (train/grid.py), where the grid varies dropout only; the
+    # warnings are the JAX CLI's
+    pregrid = {}
+    if args.parallel_grid and not args.infer:
+        from ..train.grid import GridTrainer
+
+        why = None
+        if args.architecture not in GridTrainer.SUPPORTED:
+            why = (f"architecture {args.architecture!r} is not lockstep-eligible "
+                   f"(supported: {', '.join(GridTrainer.SUPPORTED)})")
+        elif len(search_space["hidden_units"]) > 1 or len(search_space["number_layers"]) > 1:
+            why = ("the grid varies hidden_units/number_layers (parameter shapes "
+                   "differ across configs; only dropout-only grids run lockstep)")
+        elif len(hyperparameters) <= 1:
+            why = "the grid has a single configuration (nothing to batch)"
+        if why is not None:
+            msg = f"--parallel_grid ignored: {why}; training serially."
+            print(f"WARNING: {msg}", file=sys.stderr)
+            with open("logs", "a") as f:
+                f.write(msg + "\n")
+        else:
+            grid_rates = [(d_in, d_out) for _hu, _nl, d_in, d_out in hyperparameters]
+            hu0, nl0 = search_space["hidden_units"][0], search_space["number_layers"][0]
+            for index, (train_loader, valid_loader, _test, _fold) in enumerate(fold_loaders):
+                check_dir = "checkpoints" + (f"_{index}" if args.save_all_checkpoints else "")
+                os.makedirs(check_dir, exist_ok=True)
+                gt = GridTrainer(
+                    args.architecture, tagger_config(hu0, nl0, 0.0, 0.0), grid_rates,
+                    lr=args.learning_rate, optimizer=args.optimizer, max_epochs=args.max_epochs,
+                    patience=args.patience, no_early_stop=args.no_early_stop, monitor=monitor,
+                    check_dir=check_dir, seed=int(args.seed),
+                    gradient_clipping=args.gradient_clipping,
+                    tag=f"f{index}",  # folds may share check_dir; keep their checkpoints apart
+                    device=device)
+                with profiling.stage("fit_grid"):
+                    gt.fit(train_loader, None if args.no_validation else valid_loader)
+                for gi, pt in enumerate(hyperparameters):
+                    best_path = gt.best_model_paths[gi]
+                    th, bvl = ckpt_lib.parse_checkpoint_name(best_path)
+                    bvl = _resolve_monitored(bvl)
+                    if args.no_validation or args.save_last_epoch:
+                        best_path = gt.save_final(gi)
+                    pregrid[(pt, index)] = (best_path, th, bvl)
 
     for param_tuple in hyperparameters:
         hu, nl, d_in, d_out = param_tuple
@@ -254,26 +370,9 @@ def main(args):
             check_dir = "checkpoints" + (f"_{index}" if args.save_all_checkpoints else "")
             os.makedirs(check_dir, exist_ok=True)
 
-            cfg = TaggerConfig(
-                embedding_dim=emb_dim,
-                embedding_dim2=emb_dim2,
-                hidden_dim=hu,
-                num_layers=nl,
-                tagset_size=2,
-                bidirectional=args.unidirectional,  # store_false flag (reference quirk)
-                lstm=args.NoLSTM,  # store_false flag
-                dropout_in=d_in,
-                dropout_out=d_out,
-                loss_fn=args.loss_function,
-                nheads=args.number_heads,
-                attention_window=args.self_attention_window,
-                positional_encoding=args.positional_encoding,
-                switch=args.switch,
-                cosine_loss=args.cosine_loss,
-            )
             trainer = Trainer(
                 architecture=args.architecture,
-                cfg=cfg,
+                cfg=tagger_config(hu, nl, d_in, d_out),
                 lr=args.learning_rate,
                 optimizer=args.optimizer,
                 max_epochs=args.max_epochs,
@@ -286,14 +385,29 @@ def main(args):
                 metric=args.metric,
                 use_end_boundary=args.use_end_boundary,
                 zero_baseline=args.zero_baseline,
+                device_epochs=args.device_epochs or None,
                 device=device,
             )
 
-            final_params, _ = trainer.fit(train_loader, None if args.no_validation else valid_loader)
-            parsed_th, parsed_loss = ckpt_lib.parse_checkpoint_name(trainer.best_model_path)
-            threshold = args.threshold if args.threshold else parsed_th
-            best_val_loss = args.threshold if args.threshold else _resolve_monitored(parsed_loss)
-            if args.search_threshold and valid_loader and not args.no_validation:
+            final_params = None
+            if args.infer:
+                # a finished experiment's last weights, at the reference's threshold
+                trainer.best_model_path = os.path.join(check_dir, "final=0.500.ckpt")
+                threshold = best_val_loss = 0.5
+            elif (param_tuple, index) in pregrid:
+                # this configuration already trained in the GridTrainer
+                trainer.best_model_path, parsed_th, best_val_loss = pregrid[(param_tuple, index)]
+                threshold = args.threshold if args.threshold else parsed_th
+                if args.threshold:
+                    best_val_loss = args.threshold
+            else:
+                with profiling.stage("fit"), profiling.device_trace():
+                    final_params, _ = trainer.fit(train_loader,
+                                                  None if args.no_validation else valid_loader)
+                parsed_th, parsed_loss = ckpt_lib.parse_checkpoint_name(trainer.best_model_path)
+                threshold = args.threshold if args.threshold else parsed_th
+                best_val_loss = args.threshold if args.threshold else _resolve_monitored(parsed_loss)
+            if not args.infer and args.search_threshold and valid_loader and not args.no_validation:
                 # pick the threshold on the validation documents; the
                 # configuration is then chosen on the searched metric itself
                 ckpt_params, _, _, _ = ckpt_lib.load(trainer.best_model_path)
@@ -301,13 +415,14 @@ def main(args):
                 with open("logs", "a") as f:
                     f.write(f"Threshold search: best={threshold} ({args.metric}={sth_val:.4f})\n")
                 best_val_loss = sth_val
-            if args.no_validation or args.save_last_epoch:
+            if final_params is not None and (args.no_validation or args.save_last_epoch):
                 trainer.save_final(final_params)
 
             params, _, _, _ = ckpt_lib.load(trainer.best_model_path)
             # the reference always passes the (file-name or explicit) threshold
             trainer.threshold = threshold
-            res, per_doc, scores = trainer.test(params, test_loader)
+            with profiling.stage("test"):
+                res, per_doc, scores = trainer.test(params, test_loader)
             fold_results.append(res)
 
             if args.metric.lower() in ("b", "scaiano"):
@@ -359,11 +474,13 @@ def main(args):
         # with -sth on a maximised metric (F1 / b / scaiano) the selection
         # runs on the searched metric and must maximise
         maximize_sel = args.search_threshold and args.metric not in ("Pk", "WD")
-        is_best = (best_val_loss > best_results_val if maximize_sel
-                   else best_val_loss < best_results_val)
+        # under --infer every configuration is tested and the last one reported
+        is_best = args.infer or (best_val_loss > best_results_val if maximize_sel
+                                 else best_val_loss < best_results_val)
         if is_best:
             best_results = metrics_now
-            best_results_val = best_val_loss
+            if not args.infer:
+                best_results_val = best_val_loss
             best_hu, best_nl, best_dropin, best_dropout = hu, nl, d_in, d_out
             if args.all_results:
                 with open("all_results.json", "w") as f:
@@ -371,10 +488,11 @@ def main(args):
             if args.all_scores:
                 with open("all_scores.json", "w") as f:
                     json.dump(fold_all_scores, f)
-            best_name = os.path.join(check_dir, "best_model")
-            if os.path.exists(best_name):
-                os.remove(best_name)
-            os.rename(trainer.best_model_path, best_name)
+            if not args.infer:
+                best_name = os.path.join(check_dir, "best_model")
+                if os.path.exists(best_name):
+                    os.remove(best_name)
+                os.rename(trainer.best_model_path, best_name)
 
             if not test:
                 # cross-validation: bootstrap confidence intervals over folds
@@ -429,10 +547,14 @@ def main(args):
         if args.metric.lower() == "b":
             output.append(ci.format("Boundary Similarity", best_results["B"], confidence["B"]))
 
+    if args.zero_shot_labels is not None:
+        output.append("Labels: " + str(args.zero_shot_labels))
+
     if args.write_results:
         with open("results.txt", "w") as f:
             for line in output:
                 f.write("\n" + line + "\n")
+    profiling.maybe_print_report()
 
     if args.hyperparameters_search:
         grids = (results_grid_f1, results_grid_pk, results_grid_wd)
@@ -484,11 +606,13 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--verbose", "-v", action="store_true")
     parser.add_argument("--write_results", "-wr", action="store_false")
     parser.add_argument("--hyperparameters_search", "-hs", action="store_true")
-    # accepted for the flag surface and refused when asked for (see _NOT_PORTED)
+    # a dropout-only grid through one GridTrainer per fold (train/grid.py)
     parser.add_argument("--parallel_grid", "-pg", action="store_true")
+    # accepted for the flag surface and refused when asked for (see _NOT_PORTED)
     parser.add_argument("--pipeline_stages", "-pps", type=int, default=0)
     parser.add_argument("--sequence_shards", "-sqs", type=int, default=0)
     parser.add_argument("--expert_parallel", default="auto", choices=["auto", "on", "off"])
+    # the epoch loop's decisions on the device, one pull per window (train/device_fit.py)
     parser.add_argument("--device_epochs", "-de", action="store_true")
     parser.add_argument("--switch", default="dense", choices=["dense", "lstm"])
     parser.add_argument("--hidden_units_search_space", "-huss", nargs="*", type=int)

@@ -12,6 +12,13 @@ their dropout outside the stack (the recurrent module's own `dropout` is 0),
 so `forward` puts the recurrent module into train mode whenever a gradient
 is wanted, whatever the mode of the tagger around it.
 
+Host lengths: `pack_padded_sequence` takes its lengths on the host, copies
+its sort order to the device and `pad_packed_sequence` the inverse order
+back; on a card each of these waits for every queued kernel. A device
+lengths tensor that carries its packing order (`with_host_lengths`, set
+where batches are copied to the device) is packed and unpacked from it, so
+that a train step of the recurrent taggers enqueues without waiting.
+
 Parameters keep torch's layout and names (`weight_ih_l{k}[_reverse]`,
 separate `bias_ih`/`bias_hh`); `from_jax_params` maps the JAX per-layer
 pytree onto them, the legacy fused LSTM bias {"b"} as b_ih = b, b_hh = 0.
@@ -21,7 +28,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 from torch import nn
-from torch.nn.utils.rnn import pack_padded_sequence, pad_packed_sequence
+from torch.nn.utils.rnn import PackedSequence, pack_padded_sequence, pad_packed_sequence
 
 from .masks import length_mask
 
@@ -59,6 +66,16 @@ def tf_init(rnn: nn.RNNBase, generator: torch.Generator = None):
                 p[H : 2 * H] = 1.0
 
 
+def with_host_lengths(lengths: torch.Tensor, host: torch.Tensor) -> torch.Tensor:
+    """Attach to the device tensor `lengths` the packing order made from
+    `host`, its CPU copy: the sorted lengths (on the host, as the packing
+    wants them) and the sort order (copied to the device now). `run_packed`
+    then packs and unpacks without a transfer. -> lengths."""
+    sorted_lengths, order = torch.sort(host.long().clamp_min(1), descending=True)
+    lengths.host_packing = (sorted_lengths, order.to(lengths.device))
+    return lengths
+
+
 def run_packed(rnn: nn.RNNBase, x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
     """A batch-first `nn.LSTM`/`nn.GRU` over packed sequences: x [B, L, D],
     lengths [B] -> [B, L, H * directions], padding zeroed."""
@@ -66,9 +83,20 @@ def run_packed(rnn: nn.RNNBase, x: torch.Tensor, lengths: torch.Tensor) -> torch
     # train() on the recurrent module changes nothing but cuDNN's choice of
     # a path that keeps what its backward needs (its dropout is 0)
     rnn.train(torch.is_grad_enabled())
-    packed = pack_padded_sequence(x, lengths.cpu().long().clamp_min(1), batch_first=True,
-                                  enforce_sorted=False)
-    y, _ = pad_packed_sequence(rnn(packed)[0], batch_first=True, total_length=L)
+    packing = getattr(lengths, "host_packing", None)
+    if packing is None:
+        packed = pack_padded_sequence(x, lengths.cpu().long().clamp_min(1), batch_first=True,
+                                      enforce_sorted=False)
+        y, _ = pad_packed_sequence(rnn(packed)[0], batch_first=True, total_length=L)
+    else:
+        # pack_padded_sequence / pad_packed_sequence step for step, with the
+        # order already on the device (they copy it there, and the lengths back)
+        sorted_lengths, order = packing
+        data, batch_sizes = torch._pack_padded_sequence(x.index_select(0, order), sorted_lengths,
+                                                        True)
+        out = rnn(PackedSequence(data, batch_sizes, order))[0]
+        y = torch._pad_packed_sequence(out.data, out.batch_sizes, True, 0.0, L)[0]
+        y = y.index_select(0, out.unsorted_indices)
     return y * length_mask(lengths.to(x.device), L, y.dtype)[..., None]
 
 

@@ -18,8 +18,8 @@ Replicated quirks (they affect which documents and labels reach training):
   validation, popping from the END;
 - the k-fold `cross_validation_split` layout, with the augmentation path
   provided but off, as the reference always calls it.
-The sibling-corpus merge of --both_datasets (`add_dataset`) is not copied yet:
-the port's train CLI refuses that flag.
+- --both_datasets merges the sibling corpus (`add_dataset`), found by the
+  RadioNews <-> NonNews name swap at the ../<corpus>/<corpus>/... layout.
 
 `pad_batch` pads the unit axis up to bucket sizes, so that a run sees few
 distinct batch shapes; masking makes the padding numerically invisible.
@@ -29,6 +29,7 @@ from __future__ import annotations
 import json
 import os
 import pickle
+import re
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -211,6 +212,47 @@ def cross_validation_split(
 
         folds.append([list(train), list(test)])
     return folds
+
+
+def add_dataset(args, folds, fold2: bool = False):
+    """Merge the sibling corpus (RadioNews <-> NonNews) into each fold, for
+    --both_datasets. The sibling's embedding folder, labels file and split
+    JSON are derived from the primary folder's name by the Radio <-> Non swap,
+    at the fixed ../<corpus>/<corpus>/... layout, relative to the working
+    directory (the reference's load_datasets_precomputed.py contract)."""
+    embedding_folder = args.embedding_folder2 if fold2 else args.embedding_folder
+    parts = list(os.path.split(embedding_folder))
+    if len(parts[0].split(os.path.sep)) > 1:
+        parts = parts[0].split(os.path.sep) + parts[1:]
+
+    corpus = parts[0]
+    if corpus.startswith("RadioNews"):
+        swaps, sibling_split = (("Radio", "Non"), ("radio", "non")), "NonNews_split.json"
+    elif corpus.startswith("NonNews"):
+        swaps, sibling_split = (("Non", "Radio"), ("non", "radio")), "RadioNews_split.json"
+    else:
+        raise ValueError(
+            f"--both_datasets needs a RadioNews or NonNews embedding folder, got {embedding_folder!r}")
+    sibling_root = re.sub(swaps[0][0], swaps[0][1], corpus)
+    sibling_tail = [re.sub(swaps[1][0], swaps[1][1], p) for p in parts[1:]]
+    split = os.path.join("..", sibling_root, sibling_split)
+
+    new_embedding_folder = os.path.sep.join(["..", sibling_root, sibling_root] + sibling_tail)
+    new_lab_folder = os.path.join("..", sibling_root, sibling_root, "labs_dict.pkl")
+    if args.standard_split is None:
+        split = None
+
+    folds2 = load_dataset_from_precomputed(
+        new_embedding_folder,
+        new_lab_folder,
+        delete_last_sentence=args.delete_last_sentence,
+        k_folds=args.k_folds,
+        mask_inner_sentences=args.mask_inner_sentences,
+        mask_probability=args.mask_probability,
+        split=split,
+    )
+    return [[s + folds2[index][si] for si, s in enumerate(fold)]
+            for index, fold in enumerate(folds)]
 
 
 def load_dataset_for_inference(embedding_directory: str):

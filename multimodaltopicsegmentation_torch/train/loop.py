@@ -22,9 +22,13 @@ tagger's `to_jax_params()`), the form the checkpoints hold: `fit` returns it,
 device once, before the epoch loop, and an epoch's losses are pulled to the
 host in one transfer at its end.
 
+`device_epochs=True` (or MTS_DEVICE_EPOCHS=1) runs whole windows of
+MTS_DEVICE_EPOCH_WINDOW epochs (default 10) with the decisions on the device
+and one transfer per window (train/device_fit.py), over the same device
+batches as the host loop, ragged ones included.
+
 Not ported yet (the constructor raises): `mesh`, `pipeline_stages`,
-`sequence_shards`, `expert_parallel` (ROADMAP.md section 1 item 14) and
-`device_epochs` (item 13).
+`sequence_shards`, `expert_parallel` (ROADMAP.md section 1 item 14).
 """
 from __future__ import annotations
 
@@ -38,15 +42,111 @@ from ..core.torch_setup import resolve_device
 from ..eval import metrics as M
 from ..models import registry
 from ..models.base import TaggerConfig
+from ..ops import rnn as rnn_lib
 from . import checkpoints as ckpt_lib
 
 
-def make_optimizer(name: str, params, lr: float) -> torch.optim.Optimizer:
+class Optimizer(torch.optim.Optimizer):
+    """Adam (eps 1e-7), or ("SGD") SGD with momentum .9 and weight decay 1e-4
+    added to the gradient, as the reference has them, whose learning rate is
+    a float64 0-d tensor on the parameters' device, `lr_t`.
+
+    A rate decided on the device (train/device_fit.py's plateau step) is read
+    by the next step without a transfer; `torch.optim.Adam` takes a tensor
+    rate only with `capturable=True`, which refuses CPU parameters. The host
+    loop and the device windows step through this one class, so that the
+    two follow one trajectory. The arithmetic is torch.optim.Adam's / SGD's
+    (bias corrections from each parameter's host step count, in float64),
+    except that the step size lr / (1 - beta1^t) is formed on the device in
+    float64 and applied in float32 as p += -(step size) * (m / denom), where
+    torch applies it as one addcdiv. `param_groups[0]["lr"]` mirrors the rate
+    that the host last set."""
+
+    BETAS = (0.9, 0.999)
+    EPS = 1e-7
+    MOMENTUM = 0.9
+    WEIGHT_DECAY = 1e-4
+
+    def __init__(self, name: str, params, lr: float):
+        params = list(params)
+        super().__init__(params, {"lr": lr})
+        self.name = name
+        self.lr_t = torch.full((), lr, dtype=torch.float64, device=params[0].device)
+
+    def set_lr(self, lr: float):
+        for group in self.param_groups:
+            group["lr"] = lr
+        self.lr_t.fill_(lr)
+
+    def host_steps(self) -> list:
+        """Each parameter's step count (host ints), for `rewind`."""
+        return [self.state[p].get("step", 0) for g in self.param_groups for p in g["params"]]
+
+    def rewind(self, steps: list):
+        """Set the step counts back (train/device_fit.py: a masked epoch
+        leaves the device state as it was but counts on the host)."""
+        for p, n in zip((p for g in self.param_groups for p in g["params"]), steps):
+            self.state[p]["step"] = n
+
+    def state_tensors(self) -> list:
+        """The device tensors a step updates: parameters, then moments or
+        momentum buffers, in a fixed order."""
+        out = [p for g in self.param_groups for p in g["params"]]
+        for p in list(out):
+            out += [v for k, v in sorted(self.state[p].items()) if isinstance(v, torch.Tensor)]
+        return out
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        params = [p for g in self.param_groups for p in g["params"] if p.grad is not None]
+        by_step = {}
+        for p in params:
+            st = self.state[p]
+            st["step"] = st.get("step", 0) + 1
+            by_step.setdefault(st["step"], []).append(p)
+        for t, group in by_step.items():
+            grads = [p.grad for p in group]
+            if self.name == "SGD":
+                self._sgd(group, grads)
+            else:
+                self._adam(group, grads, t)
+
+    def _sgd(self, params, grads):
+        grads = torch._foreach_add(grads, params, alpha=self.WEIGHT_DECAY)
+        bufs = []
+        for p, d in zip(params, grads):
+            st = self.state[p]
+            if "momentum_buffer" not in st:
+                st["momentum_buffer"] = d.clone()
+            else:
+                st["momentum_buffer"].mul_(self.MOMENTUM).add_(d)
+            bufs.append(st["momentum_buffer"])
+        torch._foreach_add_(params, torch._foreach_mul(bufs, (-self.lr_t).float()))
+
+    def _adam(self, params, grads, t: int):
+        b1, b2 = self.BETAS
+        for p in params:
+            st = self.state[p]
+            if "exp_avg" not in st:
+                st["exp_avg"] = torch.zeros_like(p)
+                st["exp_avg_sq"] = torch.zeros_like(p)
+        ms = [self.state[p]["exp_avg"] for p in params]
+        vs = [self.state[p]["exp_avg_sq"] for p in params]
+        torch._foreach_lerp_(ms, grads, 1 - b1)
+        torch._foreach_mul_(vs, b2)
+        torch._foreach_addcmul_(vs, grads, grads, 1 - b2)
+        denom = torch._foreach_sqrt(vs)
+        torch._foreach_div_(denom, (1 - b2 ** t) ** 0.5)
+        torch._foreach_add_(denom, self.EPS)
+        update = torch._foreach_div(ms, denom)
+        torch._foreach_mul_(update, (self.lr_t / -(1 - b1 ** t)).float())
+        torch._foreach_add_(params, update)
+
+
+def make_optimizer(name: str, params, lr: float) -> Optimizer:
     """Adam with eps 1e-7, or ("SGD") SGD with momentum .9 and weight decay
-    1e-4 (added to the gradient), as the reference has them."""
-    if name == "SGD":
-        return torch.optim.SGD(params, lr=lr, momentum=0.9, weight_decay=1e-4)
-    return torch.optim.Adam(params, lr=lr, eps=1e-7)
+    1e-4, as the reference has them, with the rate on the device."""
+    return Optimizer(name, params, lr)
 
 
 def clip_by_global_norm_(params, max_norm: float) -> torch.Tensor:
@@ -88,13 +188,16 @@ _DEVICE_KEYS = ("src_tokens", "tgt_tokens", "src_lengths", "domain", "src_tokens
 
 def batches_to_device(batches: List[dict], device) -> List[dict]:
     """Copy each batch's arrays to the device ONCE, before the epoch loop
-    (the domain flags and the second modality too, where a batch has them)."""
+    (the domain flags and the second modality too, where a batch has them).
+    The lengths keep their packing order (`ops.rnn.with_host_lengths`)."""
     out = []
     for batch in batches:
         db = dict(batch)
         for key in _DEVICE_KEYS:
             if key in batch:
                 db[key] = torch.as_tensor(np.asarray(batch[key])).to(device)
+        db["src_lengths"] = rnn_lib.with_host_lengths(
+            db["src_lengths"], torch.as_tensor(np.asarray(batch["src_lengths"])))
         out.append(db)
     return out
 
@@ -132,7 +235,6 @@ class Trainer:
             ("pipeline_stages", bool(pipeline_stages and pipeline_stages > 1), 14),
             ("sequence_shards", bool(sequence_shards and sequence_shards > 1), 14),
             ("expert_parallel", expert_parallel is True, 14),
-            ("device_epochs", bool(device_epochs), 13),
         ):
             if asked:
                 raise NotImplementedError(
@@ -159,6 +261,10 @@ class Trainer:
         # the non-finite-loss tripwire, the analogue of the reference's
         # always-on Lightning Trainer(detect_anomaly=True)
         self.detect_anomaly = detect_anomaly
+        # device-resident epoch windows (train/device_fit.py)
+        if device_epochs is None:
+            device_epochs = os.environ.get("MTS_DEVICE_EPOCHS", "0") == "1"
+        self.device_epochs = device_epochs
         self.best_model_path: Optional[str] = None
         self.opt = None
         self._build()
@@ -187,8 +293,7 @@ class Trainer:
         self.opt = make_optimizer(self.optimizer_name, list(self.tagger.parameters()), self.lr)
 
     def _set_lr(self, lr: float):
-        for group in self.opt.param_groups:
-            group["lr"] = lr
+        self.opt.set_lr(lr)
 
     # -- one step ---------------------------------------------------------------
     def _loss(self, batch: dict, generator) -> torch.Tensor:
@@ -217,10 +322,81 @@ class Trainer:
     def _snapshot(self):
         return {k: v.detach().clone() for k, v in self.tagger.state_dict().items()}
 
+    # -- device-resident epoch windows --------------------------------------------
+    def _fit_device_epochs(self, train_batches, valid_batches):
+        """fit() with the epoch loop's decisions on the device
+        (train/device_fit.py): one packed pull per window of epochs. The
+        history and the anomaly tripwire are replayed from the pulled
+        losses; the snapshot is written in `finally` unless the tripwire
+        fired before any epoch had improved."""
+        from . import device_fit
+
+        window = int(os.environ.get("MTS_DEVICE_EPOCH_WINDOW", "10"))
+        nb, nv = len(train_batches), len(valid_batches or [])
+        weights = [b.get("n_real", len(b["src_lengths"])) for b in valid_batches or []]
+        self._setup()
+        train_batches = batches_to_device(train_batches, self.device)
+        valid_batches = batches_to_device(valid_batches, self.device) if nv else []
+        fit_window = device_fit.make_fit_window(
+            self, window=window, val_weights=weights, monitor_train=self.monitor == "training_loss",
+            patience=self.patience, no_early_stop=self.no_early_stop)
+        carry = device_fit.init_carry(list(self.tagger.parameters()), self.opt.lr_t)
+        os.makedirs(self.check_dir, exist_ok=True)
+        history, anomaly_epoch, mark = [], None, None
+        try:
+            e0, stopped = 0, False
+            while e0 < self.max_epochs and not stopped:
+                packed, marks = fit_window(carry, e0, self.max_epochs, train_batches, valid_batches)
+                tr, val, stops, ran = device_fit.unpack_window(packed.cpu().numpy(), window, nb, nv)
+                for i in range(window):
+                    if not ran[i]:
+                        break
+                    epoch, mark = e0 + i, marks[i]
+                    batch_losses = [float(x) for x in tr[i]]
+                    if self.detect_anomaly and not all(np.isfinite(batch_losses)):
+                        bad = int(np.flatnonzero(~np.isfinite(batch_losses))[0])
+                        anomaly_epoch = epoch
+                        raise FloatingPointError(
+                            f"detect_anomaly: non-finite training loss {batch_losses[bad]} at "
+                            f"epoch {epoch}, batch {bad} (arch={self.arch_name}, lr={self.lr}; "
+                            f"pass detect_anomaly=False to train through it)")
+                    history.append({"epoch": epoch, "training_loss": float(np.mean(batch_losses)),
+                                    "val_loss": float(np.average(val[i], weights=weights))
+                                    if nv else None})
+                    if stops[i]:
+                        stopped = True
+                        break
+                e0 += window
+        finally:
+            best_epoch, best_fname, best = torch.stack([
+                carry["best_epoch"].double(), carry["best_fname"], carry["best"]]).tolist()
+            best_epoch = int(best_epoch)
+            if anomaly_epoch is None or best_epoch < anomaly_epoch:
+                self.best_model_path = os.path.join(
+                    self.check_dir, ckpt_lib.checkpoint_name(best_epoch, best_fname, 0.5))
+                last = self._snapshot()
+                with torch.no_grad():
+                    for p, b in zip(self.tagger.parameters(), carry["best_params"]):
+                        p.copy_(b)
+                ckpt_lib.save(self.best_model_path, self.tagger.to_jax_params(), self.cfg,
+                              self.arch_name, extra={"epoch": best_epoch, "monitored": best})
+                self.tagger.load_state_dict(last)
+        # where epochs after the stop were masked, the generator and the step
+        # counts are set back to the end of the last epoch that ran
+        if mark is not None:
+            self.generator.set_state(mark[0])
+            self.opt.rewind(mark[1])
+        self.opt.set_lr(float(carry["lr"]))
+        self.params = self.tagger.to_jax_params()
+        self.history = history
+        return self.params, history
+
     # -- fit --------------------------------------------------------------------
     def fit(self, train_batches: List[dict], valid_batches: Optional[List[dict]] = None):
         """-> (final params, history). The top-1 snapshot is written to
         `best_model_path` when the loop ends, however it ends."""
+        if self.device_epochs:
+            return self._fit_device_epochs(train_batches, valid_batches)
         self._setup()
         train_batches = batches_to_device(train_batches, self.device)
         valid_batches = batches_to_device(valid_batches, self.device) if valid_batches else None

@@ -21,7 +21,7 @@ def test_port_modules_import_no_jax():
         "            'dsp.yin', 'dsp.pyin', 'dsp.prosody', 'dsp.vad', 'encoders.crdnn_vad',\n"
         "            'encoders.tdnn', 'encoders.openl3', 'encoders.crepe', 'encoders.engine',\n"
         "            'cli.extract_embeddings', 'cli.extract_embeddings_inference',\n"
-        "            'cli.predict'):\n"
+        "            'cli.predict', 'train.device_fit', 'train.grid'):\n"
         "    assert pkg.__name__ + '.' + new in names, new\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"

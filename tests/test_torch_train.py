@@ -404,8 +404,8 @@ def test_fit_snapshot_survives_the_non_finite_tripwire(tmp_path, monkeypatch):
 def test_trainer_refuses_what_is_not_ported_and_a_missing_card():
     _, cfg = _cfgs()
     for kw in (dict(mesh=object()), dict(pipeline_stages=2), dict(sequence_shards=2),
-               dict(expert_parallel=True), dict(device_epochs=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md section 1 item 1[34]"):
+               dict(expert_parallel=True)):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md section 1 item 14"):
             TLoop.Trainer("BiLSTM", cfg, device="cpu", **kw)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -622,8 +622,7 @@ def test_train_cli_defaults_to_cuda_and_refuses_unported_flags(tmp_path):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             _run_train_cli(base + ["-exp", str(tmp_path / "e0")])
         assert not os.path.exists(tmp_path / "e0")
-    for flags in (["-pg"], ["-de"], ["-pps", "2"], ["-sqs", "2"], ["--expert_parallel", "on"],
-                  ["-pca"], ["--infer"], ["-bd"], ["-zsl", "a"]):
+    for flags in (["-pps", "2"], ["-sqs", "2"], ["--expert_parallel", "on"]):
         with pytest.raises(SystemExit, match="not ported yet"):
             _run_train_cli(base + ["-exp", str(tmp_path / "e1"), "--device", "cpu"] + flags)
     assert not os.path.exists(tmp_path / "e1")
