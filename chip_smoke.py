@@ -15,7 +15,11 @@ Phases (any failure exits non-zero, and no result line is printed):
    version's time and one PyTorch call computing the same function: K1
    (instance norm + GELU), K2 (banded flash attention forward), K6 (fused
    local attention) and the flash backward K4 (dq), K5 (dq + dbias; two
-   calls must give the same bits) and K3 (dk, dv); then the four
+   calls must give the same bits) and K3 (dk, dv); K2, K4 and K3 also at
+   the shapes phase 11's ranks give them (a sequence shard's [10, 8, 1800 +
+   window/2, 96] with the line exchange's prefix lengths, a pipeline
+   microbatch's [1, 8, 3600, 96], a data-parallel share's [5, 8, 3600, 96]),
+   held to their plain versions and not timed; then the four
    differentiable flash entries' gradients against the plain path's;
 3. the audio path end to end: synthetic wavs, a random-weight BiLSTM
    checkpoint (embedding 768, h 256, 2 layers, FocalLoss) and the predict
@@ -75,11 +79,27 @@ Phases (any failure exits non-zero, and no result line is printed):
    windows enqueued under torch's sync debug mode "error" (RecurrentLongT5's
    synchronizing calls counted by caller), wall per epoch of both loops and
    one profiled window fit each; `GridTrainer` over the paper's 3 x 3
-   dropout grid on the replication BiLSTM (10 x 3600, 3 epochs),
+   dropout grid on the replication BiLSTM (10 x 3600, 2 epochs),
    configurations 0, 4 and 8 against serial `Trainer` runs, the grid's wall
    against serial fits', peak memory; the train CLI with `-pg` (a 2 x 2
    grid), `-de` (Transformer), `-pca` and `--infer` on the first run's
    folder, each with finite Pk / F1 / WD in results.txt.
+11. the parallel layer with two ranks on the one card (gloo: more ranks
+   than cards), spawned once with the kernels already built: at the
+   flagship width over phase 6's corpus as one global batch of 10 x 3600,
+   PARALLEL_EPOCHS steps each of data-parallel Transformer and BiLSTM fits
+   (5 x 3600 a rank), `sequence_shards=2` (1800 units a rank plus halos),
+   `pipeline_stages=2` (10 microbatches), expert-parallel SwitchBiLSTM
+   ('lstm', domains from digit-named files), then each test decode; a
+   `GridTrainer(mesh)` of 4 BiLSTM configurations; the sharded predict over
+   phase 4's ten files. Each against the same run on one rank on the card
+   (losses and logits at rtol 1e-4, identical tags, the grid at 1e-5, the
+   predict's results.pkl equal to phase 4's), K2/K4/K3 launches counted per
+   rank and step; then `torchrun --standalone --nproc_per_node 2` on
+   `train_fit -sqs 2` and `-pps 2` with phase 6's CLI flags (results.txt
+   equal to phase 6's, test scores at 1e-4) and on `predict` with the
+   first one's checkpoint (tags equal to one rank's), each under its own
+   time limit.
 
 The line before the last is a JSON object with one entry per kernel; the last
 line is {"ok": true, "device": {...}}. Working files go to build/chip_smoke/.
@@ -118,6 +138,10 @@ PALLAS = "multimodaltopicsegmentation_tpu/ops/pallas_attention.py"
 TRAIN_UNITS = (3600, 3600, 3400, 3100, 2900, 2500, 2100, 3600, 3300, 2800)
 TRAIN_TAGGERS = ("Transformer", "RecurrentLongT5", "BiLSTMRestrictedMHA", "BiLSTM")
 TRAIN_EPOCHS = 20
+# the train CLI's run of phase 6, which phase 11 repeats on two ranks with -sqs 2 and -pps 2
+TRAIN_CLI_FLAGS = ("-arc", "Transformer", "-enc", "wav2vec", "-lr", "1e-3", "-hu", "256", "-nl",
+                   "2", "-nh", "8", "-window", "120", "-bs", "10", "-max", "2", "-pat", "2",
+                   "-loss", "FocalLoss", "-sth", "-ar", "-as", "--device", "cuda")
 # flash layers per tagger: (K2 forward, K4, K5, K3) launches of one train step without remat
 STEP_LAUNCHES = {"Transformer": (2, 2, 0, 2), "RecurrentLongT5": (2, 0, 2, 2),
                  "BiLSTMRestrictedMHA": (2, 2, 0, 2), "BiLSTM": (0, 0, 0, 0)}
@@ -327,6 +351,10 @@ def check_flash_attention(dev):
          CHECK_LENGTHS),
         ("K6 Transformer layer 0", "K6", 8, 3600, 96, 240, False, True, False, CHECK_LENGTHS),
     ]
+    gated = set()  # phase 11's shapes: held to the plain version, not timed
+    for label, B, L, window, lengths in parallel_attention_shapes():
+        cases.append((f"K2 {label}", "K2", B, L, 96, window, False, True, False, lengths))
+        gated.add(f"K2 {label}")
     rows = []
     for label, kernel, B, L, Dh, window, biased, scale, dropped, lengths in cases:
         g = torch.Generator(device=dev).manual_seed(0)
@@ -355,6 +383,13 @@ def check_flash_attention(dev):
             torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-4)
         err = (out - want_out).abs().max().item()
         del want_lse
+        if label in gated:
+            log(f"[{label}] [{B}, {H}, {L}, {Dh}] f32 window {window}, lengths {list(lengths)}: "
+                f"max_abs_err {err:.3e} (atol/rtol 1e-4, O and lse)")
+            rows.append({"kernel": kernel, "label": label, "shape": [B, H, L, Dh],
+                         "window": window, "max_abs_err": err})
+            del q, k, v, out, want_out
+            continue
 
         library_ms = None
         if not dropped:  # no one call applies a given 0/1 tile to the weights
@@ -811,6 +846,10 @@ def check_flash_backward(dev):
         ("BiLSTMRestrictedMHA, with a 0/1 tile", 8, 3600, 32, 120, False, True, True,
          CHECK_LENGTHS),
     ]
+    gated = set()  # phase 11's shapes: held to the plain versions, not timed
+    for label, B, L, window, lengths in parallel_attention_shapes():
+        cases.append((label, B, L, 96, window, False, True, False, lengths))
+        gated.add(label)
     rows = []
     for label, B, L, Dh, window, biased, scale, dropped, lengths in cases:
         g = torch.Generator(device=dev).manual_seed(0)
@@ -854,6 +893,15 @@ def check_flash_backward(dev):
             if dq[b, :, n:].any():
                 raise RuntimeError(f"{label}: dq is not zero on the padded rows of batch row {b}")
         del want_dq, want_dk, want_dv
+        if label in gated:
+            log(f"[K4 and K3 {label}] [{B}, {H}, {L}, {Dh}] f32 window {window}, lengths "
+                f"{list(lengths)}: max_abs_err dq {errs['dq']:.3e}, dk {errs['dk']:.3e}, "
+                f"dv {errs['dv']:.3e} (atol/rtol 1e-4)")
+            for kernel, keys in (("K4", ("dq",)), ("K3", ("dk", "dv"))):
+                rows.append({"kernel": kernel, "label": label, "shape": [B, H, L, Dh],
+                             "window": window, "max_abs_err": max(errs[k] for k in keys)})
+            del q, k, v, do, out, dq, dk, dv
+            continue
         scratch = 0
         if biased:
             # the bytes of the scratch of dS slabs that the first call allocated
@@ -1237,11 +1285,8 @@ def train_cli_path(emb_dir, labs_file, split_file):
     cwd = os.getcwd()
     t0 = time.perf_counter()
     try:
-        train_fit.cli_main([
-            "-exp", exp, "-arc", "Transformer", "-enc", "wav2vec", "-ef", emb_dir, "-lf", labs_file,
-            "-lr", "1e-3", "-hu", "256", "-nl", "2", "-nh", "8", "-window", "120", "-bs", "10",
-            "-max", "2", "-pat", "2", "-loss", "FocalLoss", "-split", split_file, "-sth", "-ar",
-            "-as", "--device", "cuda"])
+        train_fit.cli_main(["-exp", exp, "-ef", emb_dir, "-lf", labs_file, "-split", split_file,
+                            *TRAIN_CLI_FLAGS])
     finally:
         os.chdir(cwd)
     torch.cuda.synchronize()
@@ -1937,7 +1982,7 @@ def frontend_phase(k1):
 WINDOW_TAGGERS = ("Transformer", "RecurrentLongT5")
 WINDOW_EPOCHS, WINDOW = 6, 3
 GRID_RATES = tuple((di, do) for di in (0.0, 0.2, 0.5) for do in (0.0, 0.2, 0.5))
-GRID_EPOCHS = 3
+GRID_EPOCHS = 2  # cut from 3 so that phase 11 fits the script's time
 
 
 def _fit_wall(trainer, train_batches, valid_batches):
@@ -2190,6 +2235,376 @@ def completeness_phase(docs, emb_dir, labs_file, split_file):
     return launches
 
 
+# -- phase 11: the parallel layer, two ranks on the one card ----------------------------------
+
+PARALLEL_RANKS = 2
+PARALLEL_EPOCHS = 3  # steps of each parallel fit: one global batch of 10 x 3600 an epoch
+PARALLEL_GRID = ((0.0, 0.0), (0.2, 0.0), (0.0, 0.2), (0.2, 0.2))
+PARALLEL_GRID_EPOCHS = 2
+PARALLEL_TIMEOUT = 300  # seconds for the spawn, and for each torchrun call
+# (K2, K4, K5, K3) launches a rank makes in one train step: 2 layers each, or,
+# pipelined over 2 stages, 1 layer for each of the 10 microbatches
+PARALLEL_STEP_LAUNCHES = {"dp_transformer": (2, 2, 0, 2), "seq_transformer": (2, 2, 0, 2),
+                          "pipe_transformer": (10, 10, 0, 10), "dp_bilstm": (0, 0, 0, 0),
+                          "expert_switch": (0, 0, 0, 0)}
+# a Transformer test decode (2 layers, one batch), the sharded predict (2 layers x 2 chunks)
+PARALLEL_DECODE_LAUNCHES, PARALLEL_PREDICT_LAUNCHES = (2, 0, 0, 0), (4, 0, 0, 0)
+
+
+def parallel_attention_shapes():
+    """(label, B, L, window, lengths) of the attention calls that phase 11's
+    ranks make in the Transformer's two layers (windows 240 and 120, Dh 96),
+    for the kernel checks: a sequence shard's window [left halo | 1800 |
+    right halo] on the line, where rank 1 has a left halo of window/2 only
+    and the prefix lengths clamp(length - (1800 - window/2), 0, 1800 +
+    window/2); a pipeline microbatch (one document); a data-parallel share
+    (rank 1's five documents)."""
+    Ls = 3600 // PARALLEL_RANKS
+    shapes = []
+    for window in (240, 120):
+        half = window // 2
+        prefix = tuple(min(max(n - (Ls - half), 0), Ls + half) for n in TRAIN_UNITS)
+        shapes += [(f"sequence shard 1, window {window}", len(TRAIN_UNITS), Ls + half, window,
+                    prefix),
+                   (f"pipeline microbatch, window {window}", 1, 3600, window,
+                    (TRAIN_UNITS[2 if window == 240 else 6],)),
+                   (f"data-parallel share 1, window {window}", 5, 3600, window,
+                    TRAIN_UNITS[5:])]
+    return shapes
+
+
+def _parallel_batches(docs):
+    """The phase-6 corpus as one global batch of 10 x 3600 (5 x 3600 a rank
+    under data parallelism), and the same with domain flags: the even
+    documents' names gain a leading digit (domain 1, as RadioNews files)."""
+    from multimodaltopicsegmentation_torch.train.data import pad_batch
+
+    pad = dict(crf=False, truncate=True, truncate_value=3600)
+    named = [(e, lab, f"{d}{n}" if d % 2 == 0 else n) for d, (e, lab, n) in enumerate(docs)]
+    return pad_batch(docs, **pad), pad_batch(named, domain_adapt=True, **pad)
+
+
+def _parallel_fits():
+    """(name, architecture, Trainer keywords, uses the domain batch) of the fits."""
+    return (("dp_transformer", "Transformer", "mesh", False),
+            ("dp_bilstm", "BiLSTM", "mesh", False),
+            ("seq_transformer", "Transformer", dict(sequence_shards=PARALLEL_RANKS), False),
+            ("pipe_transformer", "Transformer", dict(pipeline_stages=PARALLEL_RANKS), False),
+            ("expert_switch", "SwitchBiLSTM", {}, True))
+
+
+def _switch_config():
+    import dataclasses
+
+    return dataclasses.replace(training_config(), switch="lstm")
+
+
+def parallel_rank(rank, out_dir, batch, domain_batch, emb_dir, ckpt, hyp):
+    """One of the two ranks (spawned, gloo on one card): each mode's fit of
+    PARALLEL_EPOCHS steps and its test decode, the grid, the sharded predict;
+    launches, walls and staged bytes counted here, in this process."""
+    import pickle
+
+    import numpy as np
+    import torch
+
+    from multimodaltopicsegmentation_torch.cli import predict
+    from multimodaltopicsegmentation_torch.parallel import mesh as PM
+    from multimodaltopicsegmentation_torch.train.grid import GridTrainer
+    from multimodaltopicsegmentation_torch.train.loop import Trainer
+
+    mesh = PM.make_mesh()
+    counters = flash_counters()
+
+    def counted(fn):
+        for c in counters.values():
+            c.launches = 0
+        staged = PM.stats["staged_bytes"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, dict(wall=time.perf_counter() - t0, staged=PM.stats["staged_bytes"] - staged,
+                         launches={n: c.launches for n, c in counters.items()})
+
+    res = {"device": str(mesh.device), "backend": mesh.backend}
+    # warm-up, untimed and uncounted: this process's first kernels, cuBLAS and
+    # cuDNN handles and gloo's buffers, which every mode below then finds ready
+    Trainer("Transformer", training_config(), lr=1e-3, max_epochs=1, monitor="training_loss",
+            check_dir=os.path.join(out_dir, f"warm_{rank}"), seed=0, device=mesh.device,
+            mesh=mesh).fit([batch])
+    for name, arch, kw, domain in _parallel_fits():
+        cfg = _switch_config() if arch == "SwitchBiLSTM" else training_config()
+        kw = dict(mesh=mesh) if kw == "mesh" else kw
+        trainer = Trainer(arch, cfg, lr=1e-3, max_epochs=PARALLEL_EPOCHS, monitor="training_loss",
+                          check_dir=os.path.join(out_dir, f"{name}_{rank}"), seed=0,
+                          device=mesh.device, **kw)
+        b = domain_batch if domain else batch
+        (_, history), fit = counted(lambda: trainer.fit([b]))
+        (test, _, scores), dec = counted(lambda: trainer.test(trainer.params, [b]))
+        res[name] = dict(history=history, fit=fit, test=test, decode=dec,
+                         scores=[np.asarray(x, np.float32) for x in scores],
+                         expert=trainer.expert_mesh is not None)
+        del trainer
+        torch.cuda.empty_cache()
+    gt = GridTrainer("BiLSTM", training_config(), PARALLEL_GRID, lr=1e-3,
+                     max_epochs=PARALLEL_GRID_EPOCHS, monitor="training_loss", seed=0,
+                     check_dir=os.path.join(out_dir, "grid"), mesh=mesh, device=mesh.device)
+    (_, histories), grid = counted(lambda: gt.fit([batch]))
+    res["grid"] = dict(histories=histories, paths=[os.path.basename(p) for p in gt.best_model_paths],
+                       fit=grid)
+    _, pred = counted(lambda: predict.cli_main([
+        "-ef", emb_dir, "-hyp", hyp, "-model", ckpt, "-exp", os.path.join(out_dir, "predict"),
+        "-bs", "8", "-rjs", "--device", "cuda"]))
+    res["predict"] = dict(fit=pred)
+    with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(res, f)
+
+
+def _close(what, got, want, rtol=1e-4):
+    """|got - want| <= rtol * (|want| + max |want|): relative, with the
+    array's own scale for values near 0; -> the largest relative error."""
+    import numpy as np
+
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    scale = np.abs(want).max() if want.size else 0.0
+    err = np.abs(got - want) / (np.abs(want) + scale + 1e-30)
+    if got.shape != want.shape or not (err <= rtol).all():
+        raise RuntimeError(f"{what}: {err.max() if err.size else 'shape'} apart (rtol {rtol}); "
+                           f"shapes {got.shape} {want.shape}")
+    return float(err.max()) if err.size else 0.0
+
+
+def _one_rank_references(batch, domain_batch):
+    """The same fits, test decodes and grid on one rank on the card (no group)."""
+    import numpy as np
+    import torch
+
+    from multimodaltopicsegmentation_torch.train.grid import GridTrainer
+    from multimodaltopicsegmentation_torch.train.loop import Trainer
+
+    refs, walls = {}, {}
+    for arch, domain in (("Transformer", False), ("BiLSTM", False), ("SwitchBiLSTM", True)):
+        cfg = _switch_config() if arch == "SwitchBiLSTM" else training_config()
+        trainer = Trainer(arch, cfg, lr=1e-3, max_epochs=PARALLEL_EPOCHS, monitor="training_loss",
+                          check_dir=os.path.join(WORK, f"parallel_ref_{arch}"), seed=0,
+                          device="cuda")
+        b = domain_batch if domain else batch
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, history = trainer.fit([b])
+        torch.cuda.synchronize()
+        walls[arch] = time.perf_counter() - t0
+        test, _, scores = trainer.test(trainer.params, [b])
+        refs[arch] = dict(history=history, test=test,
+                          scores=[np.asarray(x, np.float32) for x in scores])
+        del trainer
+        torch.cuda.empty_cache()
+    gt = GridTrainer("BiLSTM", training_config(), PARALLEL_GRID, lr=1e-3,
+                     max_epochs=PARALLEL_GRID_EPOCHS, monitor="training_loss", seed=0,
+                     check_dir=os.path.join(WORK, "parallel_ref_grid"), device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, histories = gt.fit([batch])
+    torch.cuda.synchronize()
+    walls["grid"] = time.perf_counter() - t0
+    refs["grid"] = dict(histories=histories,
+                        paths=[os.path.basename(p) for p in gt.best_model_paths])
+    return refs, walls
+
+
+def _run_group(cmd, timeout, what):
+    """cmd in a session of its own, under `timeout`; every process of the
+    session is killed if it runs over. Raises on a non-zero exit."""
+    import signal
+
+    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True, start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise RuntimeError(f"{what}: still running after {timeout} s, killed")
+    finally:
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)  # nothing of the session outlives it
+        except ProcessLookupError:
+            pass
+    if proc.returncode != 0:
+        raise RuntimeError(f"{what}: exit code {proc.returncode}:\n{out[-4000:]}")
+    return out
+
+
+def _torchrun(module, argv, what):
+    t0 = time.perf_counter()
+    out = _run_group([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                      "--nproc_per_node", str(PARALLEL_RANKS), "-m", module, *argv],
+                     PARALLEL_TIMEOUT, what)
+    if out.count("backend gloo") != PARALLEL_RANKS:
+        raise RuntimeError(f"{what}: the ranks did not report backend gloo:\n{out[-2000:]}")
+    return time.perf_counter() - t0
+
+
+def _results_lines(exp):
+    with open(os.path.join(exp, "results.txt")) as f:
+        return [ln for ln in f.read().splitlines()
+                if ln and not ln.startswith("Results for experiment")]
+
+
+def parallel_cli(emb_dir, labs_file, split_file):
+    """torchrun --standalone --nproc_per_node 2 on train_fit -sqs 2 and -pps 2
+    (phase 6's train CLI flags: Transformer, 2 epochs, threshold search) and
+    on predict with the -sqs run's checkpoint, against phase 6's one-rank
+    run and a one-rank predict on that checkpoint."""
+    import json
+    import pickle
+
+    import numpy as np
+
+    from multimodaltopicsegmentation_torch.cli import predict
+
+    one = os.path.join(WORK, "exp_train_cli")  # phase 6, one rank, the same flags
+    flags = ["-ef", emb_dir, "-lf", labs_file, "-split", split_file, *TRAIN_CLI_FLAGS]
+    with open(os.path.join(one, "all_scores.json")) as f:
+        want_scores = json.load(f)
+    walls = {}
+    for mode in ("-sqs", "-pps"):
+        exp = os.path.join(WORK, f"exp_torchrun{mode}")
+        walls[f"train_fit {mode} 2"] = _torchrun(
+            "multimodaltopicsegmentation_torch.cli.train_fit", flags + ["-exp", exp, mode, "2"],
+            f"torchrun train_fit {mode} 2")
+        if _results_lines(exp) != _results_lines(one):
+            raise RuntimeError(f"train_fit {mode} 2 on two ranks: {_results_lines(exp)} against "
+                               f"one rank's {_results_lines(one)}")
+        with open(os.path.join(exp, "all_scores.json")) as f:
+            got = json.load(f)
+        err = max(_close(f"train_fit {mode} 2 scores of {k}", got[k], want_scores[k])
+                  for k in want_scores)
+        log(f"[parallel] torchrun train_fit {mode} 2: {walls[f'train_fit {mode} 2']:.3f} s; "
+            f"results.txt equal to one rank's; test scores {err:.3e} apart (rtol 1e-4)")
+    exp = os.path.join(WORK, "exp_torchrun-sqs")
+    ckpt, hyp = os.path.join(exp, "checkpoints", "best_model"), os.path.join(exp, "results.txt")
+    common = ["-ef", emb_dir, "-hyp", hyp, "-model", ckpt, "-bs", "8", "-rjs", "--device", "cuda"]
+    walls["predict"] = _torchrun("multimodaltopicsegmentation_torch.cli.predict",
+                                 common + ["-exp", os.path.join(WORK, "exp_torchrun_predict")],
+                                 "torchrun predict")
+    predict.cli_main(common + ["-exp", os.path.join(WORK, "exp_torchrun_predict_one")])
+    results = []
+    for name in ("exp_torchrun_predict", "exp_torchrun_predict_one"):
+        with open(os.path.join(WORK, name, "results.pkl"), "rb") as f:
+            results.append(pickle.load(f))
+    if results[0] != results[1] or len(results[0]) != len(TRAIN_UNITS):
+        raise RuntimeError("torchrun predict: tags differ from one rank's")
+    log(f"[parallel] torchrun predict on the -sqs checkpoint: {walls['predict']:.3f} s, "
+        f"{len(results[0])} documents, tags identical to one rank's "
+        f"({int(np.sum([sum(t) for t in results[0].values()]))} boundaries)")
+    return walls
+
+
+def parallel_phase(docs, emb_dir, labs_file, split_file, smi):
+    """Phase 11: the parallel layer with two ranks on the one card. -> {kernel
+    name: launches of both ranks}."""
+    import pickle
+
+    import torch
+
+    from multimodaltopicsegmentation_torch.parallel import mesh as PM
+    from multimodaltopicsegmentation_torch.parallel.dryrun import spawn_ranks
+
+    t_phase = time.perf_counter()
+    if PM.backend_for(PARALLEL_RANKS, "cuda") != "gloo":
+        raise RuntimeError("two ranks on one card must take gloo")
+    log(f"[parallel] backend rule: {PARALLEL_RANKS} ranks, {torch.cuda.device_count()} card(s) "
+        f"-> {PM.backend_for(PARALLEL_RANKS, 'cuda')}; the compute stays on the card, "
+        f"ppermute and all_gather stage through host memory")
+    batch, domain_batch = _parallel_batches(docs)
+    torch.cuda.empty_cache()  # the earlier phases' cached blocks, for the ranks
+    out = os.path.join(WORK, "parallel")
+    os.makedirs(out)
+    ckpt = os.path.join(WORK, "ckpt_Transformer", "best_model")  # phase 4's, and its predict
+    hyp = os.path.join(WORK, "results_Transformer.txt")
+    t0 = time.perf_counter()
+    spawn_ranks(parallel_rank, PARALLEL_RANKS,
+                (out, batch, domain_batch, os.path.join(WORK, "long_emb"), ckpt, hyp), "cuda",
+                timeout=PARALLEL_TIMEOUT, store_dir=out)
+    spawn_wall = time.perf_counter() - t0
+    ranks = []
+    for r in range(PARALLEL_RANKS):
+        with open(os.path.join(out, f"rank{r}.pkl"), "rb") as f:
+            ranks.append(pickle.load(f))
+    refs, ref_walls = _one_rank_references(batch, domain_batch)
+
+    counters = flash_counters()
+    total = dict.fromkeys(counters, 0)
+    for r, res in enumerate(ranks):
+        if res["backend"] != "gloo" or res["device"] != "cuda:0":
+            raise RuntimeError(f"rank {r}: backend {res['backend']} on {res['device']}")
+        for name, arch, _, _ in _parallel_fits():
+            got, want = res[name], refs[arch]
+            steps = len(got["history"])
+            if steps != PARALLEL_EPOCHS or len(want["history"]) != steps:
+                raise RuntimeError(f"{name} rank {r}: {steps} epochs")
+            err = max(_close(f"{name} rank {r} losses", [h["training_loss"] for h in got["history"]],
+                             [h["training_loss"] for h in want["history"]]),
+                      max(_close(f"{name} rank {r} logits", a, b)
+                          for a, b in zip(got["scores"], want["scores"])))
+            if got["test"] != want["test"]:
+                raise RuntimeError(f"{name} rank {r}: test {got['test']} against one rank's "
+                                   f"{want['test']} (tags differ)")
+            per_step = PARALLEL_STEP_LAUNCHES[name]
+            fit_want = dict(zip(counters, (n * PARALLEL_EPOCHS for n in per_step)))
+            # decode: 2 layers a batch, or none for the LSTM taggers
+            dec_want = dict(zip(counters, PARALLEL_DECODE_LAUNCHES if arch == "Transformer"
+                                else (0, 0, 0, 0)))
+            if got["fit"]["launches"] != fit_want or got["decode"]["launches"] != dec_want:
+                raise RuntimeError(f"{name} rank {r}: launches fit {got['fit']['launches']} "
+                                   f"(want {fit_want}), decode {got['decode']['launches']} "
+                                   f"(want {dec_want})")
+            if name == "expert_switch" and not got["expert"]:
+                raise RuntimeError("SwitchBiLSTM('lstm') on two ranks did not take expert mode")
+            for k in total:
+                total[k] += got["fit"]["launches"][k] + got["decode"]["launches"][k]
+            if r == 0:
+                log(f"[parallel] {name} ({arch}, 768 -> 256 x 2, 8 heads, window 120, 10 x 3600 "
+                    f"over 2 ranks): fit of {PARALLEL_EPOCHS} steps {got['fit']['wall']:.3f} s "
+                    f"(one rank {ref_walls[arch]:.3f} s), test decode {got['decode']['wall']:.3f} "
+                    f"s; staged {got['fit']['staged'] / PARALLEL_EPOCHS / 2**20:.2f} MiB a step; "
+                    f"losses and logits {err:.3e} from one rank's (rtol 1e-4), tags identical; "
+                    f"launches a step {dict(zip(counters, per_step))}")
+        grid = res["grid"]  # each configuration's own fit, on its rank: phase 10's grid gate
+        if grid["paths"] != refs["grid"]["paths"]:
+            raise RuntimeError(f"grid over 2 ranks, rank {r}: snapshots {grid['paths']} against "
+                               f"the serial grid's {refs['grid']['paths']}")
+        grid_err = max(_close(f"grid configuration {g} rank {r}",
+                              [h["training_loss"] for h in got_h],
+                              [h["training_loss"] for h in want_h], rtol=1e-5)
+                       for g, (got_h, want_h) in enumerate(zip(grid["histories"],
+                                                               refs["grid"]["histories"])))
+        pred = res["predict"]["fit"]["launches"]
+        if pred != dict(zip(counters, PARALLEL_PREDICT_LAUNCHES)):
+            raise RuntimeError(f"sharded predict rank {r}: launches {pred}")
+        for k in total:
+            total[k] += pred[k]
+    with open(os.path.join(WORK, "parallel", "predict", "results.pkl"), "rb") as f:
+        sharded = pickle.load(f)
+    with open(os.path.join(WORK, "exp_Transformer", "results.pkl"), "rb") as f:
+        one = pickle.load(f)
+    if sharded != one:
+        raise RuntimeError("the sharded predict's tags differ from phase 4's one-rank predict")
+    log(f"[parallel] GridTrainer(mesh) G = {len(PARALLEL_GRID)} BiLSTM, {PARALLEL_GRID_EPOCHS} "
+        f"epochs: {ranks[0]['grid']['fit']['wall']:.3f} s on 2 ranks against "
+        f"{ref_walls['grid']:.3f} s serial, losses {grid_err:.3e} apart (rtol 1e-5), the same "
+        f"snapshots; sharded predict over "
+        f"{len(DOC_UNITS)} files: {ranks[0]['predict']['fit']['wall']:.3f} s, tags identical to "
+        f"phase 4's; the spawn (start-up included) {spawn_wall:.1f} s")
+    cli_walls = parallel_cli(emb_dir, labs_file, split_file)
+    log(f"[parallel] phase 11 on {smi}: {time.perf_counter() - t_phase:.1f} s (spawn "
+        f"{spawn_wall:.1f} s, torchrun calls {sum(cli_walls.values()):.1f} s); launches of both "
+        f"ranks {total}")
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -2262,6 +2677,10 @@ def main() -> int:
     for name, n in completeness_phase(docs, emb_dir, labs_file, split_file).items():
         launches[name] = launches.get(name, 0) + n
     log(f"[phase] training completeness: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    for name, n in parallel_phase(docs, emb_dir, labs_file, split_file, smi).items():
+        launches[name] = launches.get(name, 0) + n
+    log(f"[phase] parallel: {time.perf_counter() - t:.1f} s")
 
     for name, r in results.items():
         r["launches"] = launches[name]

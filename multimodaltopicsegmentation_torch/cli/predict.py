@@ -14,6 +14,13 @@ names and unit counts), whose encoder the training `results.txt` names on
 its `Second sentence encoder` line. SwitchBiLSTM is refused: predict has no
 per-document domain ids.
 
+Under torchrun (WORLD_SIZE > 1), and for a single-input tagger, the decode
+is sharded as the JAX CLI shards it over its devices: every chunk of
+documents is padded to a multiple of the ranks with zero-length documents,
+each rank decodes its share and the tags are gathered
+(parallel/train_step.make_sharded_decode). Rank 0 extracts the embeddings
+(-ee) and writes `results.pkl` and the segment wavs.
+
 Run: python -m multimodaltopicsegmentation_torch.cli.predict -ee -ef <emb dir>
        -hyp results.txt -model <checkpoint> -exp <out dir> -af <wav dir>
        [-ef2 <second emb dir>] [--device cpu]
@@ -113,7 +120,9 @@ class Predictor(BasePredictor):
                     self.encoder = line.split()[2]
                 elif line.startswith("Second sentence encoder"):
                     self.encoder2 = line.split()[3]
-        self.device = resolve_device(device)
+        from ..parallel.mesh import rank_device, world_size
+
+        self.device = rank_device(device) if world_size() > 1 else resolve_device(device)
 
         params, cfg, arch_name, _ = ckpt_lib.load(best_model_path)
         if registry.is_domain_adapt(arch_name):
@@ -139,12 +148,27 @@ class Predictor(BasePredictor):
     def predict(self, embedding_folder, experiment_name, write_audio_segments=True,
                 audio_directory=None, batch_size=8, verbose=False, add_overlap=1,
                 embedding_folder2=None):
+        from ..parallel import mesh as mesh_lib
+
         if os.path.exists(experiment_name):
             raise ValueError(
                 "The name of this experiment has already been used: please "
                 f"change experiment name or delete {experiment_name}"
             )
-        os.makedirs(experiment_name)
+        mesh = None
+        if mesh_lib.world_size() > 1 and not self.double:
+            from ..parallel.train_step import make_sharded_decode
+
+            # shard the documents of each chunk over the ranks' "data" axis
+            mesh = mesh_lib.make_mesh(model_parallel=1)
+            n = mesh.shape["data"]
+            batch_size = max(batch_size, n)
+            batch_size -= batch_size % n
+            sharded = make_sharded_decode(self.arch, mesh, self.th)
+        writer = mesh_lib.global_rank() == 0
+        mesh_lib.barrier()  # every rank has looked before rank 0 makes it
+        if writer:
+            os.makedirs(experiment_name)
 
         embeddings, file_names = load_dataset_for_inference_with_names(embedding_folder)
         if verbose:
@@ -158,22 +182,31 @@ class Predictor(BasePredictor):
         docs = [(e, [0] * len(e), n) for e, n in zip(embeddings, file_names)]
         for i in range(0, len(docs), batch_size):
             chunk = docs[i : i + batch_size]
-            batch = pad_batch(chunk, crf=False, bucket=True)
-            x, lengths = (torch.from_numpy(batch[k]).to(self.device)
-                          for k in ("src_tokens", "src_lengths"))
-            with torch.inference_mode():
-                if self.double:
-                    # the same pad_batch arguments: both modalities pad to one length
-                    x2 = pad_batch(docs2[i : i + batch_size], crf=False, bucket=True)["src_tokens"]
-                    _, tags = self.arch.decode(x, lengths, self.th,
-                                               x2=torch.from_numpy(x2).to(self.device))
-                else:
-                    _, tags = self.arch.decode(x, lengths, self.th)
+            # a sharded chunk is padded to a multiple of the ranks
+            pad_to = batch_size if mesh is not None and len(chunk) < batch_size else None
+            batch = pad_batch(chunk, crf=False, bucket=True, pad_batch_to=pad_to)
+            if mesh is not None:
+                _, tags = sharded(batch)
+            else:
+                x, lengths = (torch.from_numpy(batch[k]).to(self.device)
+                              for k in ("src_tokens", "src_lengths"))
+                with torch.inference_mode():
+                    if self.double:
+                        # the same pad_batch arguments: both modalities pad to one length
+                        x2 = pad_batch(docs2[i : i + batch_size], crf=False,
+                                       bucket=True)["src_tokens"]
+                        _, tags = self.arch.decode(x, lengths, self.th,
+                                                   x2=torch.from_numpy(x2).to(self.device))
+                    else:
+                        _, tags = self.arch.decode(x, lengths, self.th)
             tags = tags.cpu().numpy()
             for j in range(len(chunk)):
                 L = int(batch["src_lengths"][j])
                 results.append(tags[j][:L].astype(int).tolist())
 
+        if not writer:
+            mesh_lib.barrier()  # rank 0 writes the outputs
+            return results
         if write_audio_segments:
             if audio_directory is None:
                 raise ValueError("If segmenting the input audio, provide the audio directory")
@@ -200,6 +233,7 @@ class Predictor(BasePredictor):
                     )
         with open(os.path.join(experiment_name, "results.pkl"), "wb") as f:
             pickle.dump(dict(zip(file_names, results)), f)
+        mesh_lib.barrier()
         return results
 
     @staticmethod
@@ -251,7 +285,18 @@ def build_parser():
 
 
 def cli_main(argv=None):
+    """Parse and run; under torchrun (WORLD_SIZE > 1) this process joins the
+    ranks' group first and leaves it at the end."""
+    from ..parallel.multihost import process_group_from_environment
+
     args = build_parser().parse_args(argv)
+    with process_group_from_environment(args.device):
+        return _run(args)
+
+
+def _run(args):
+    from ..parallel.mesh import barrier, global_rank
+
     predictor = Predictor(
         args.hyperparameter_file,
         args.best_model_path,
@@ -269,8 +314,10 @@ def cli_main(argv=None):
             streams.append((predictor.encoder2, "embedding_folder2"))
         for enc, attr in streams:
             folder = getattr(args, attr)
-            predictor.create_embeddings(enc, args.audio_folder, folder, args.uniform_interval,
-                                        args.adaptive_uniform, args.verbose, True)
+            if global_rank() == 0:
+                predictor.create_embeddings(enc, args.audio_folder, folder, args.uniform_interval,
+                                            args.adaptive_uniform, args.verbose, True)
+            barrier()
             pooling_idx = enc.find("_")
             if pooling_idx > -1:
                 setattr(args, attr, os.path.join(folder, enc[pooling_idx:]))

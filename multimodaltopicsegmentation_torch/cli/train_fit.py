@@ -27,8 +27,17 @@ device), `--infer` tests `checkpoints/final=0.500.ckpt` of a finished
 experiment, `--both_datasets` merges the sibling RadioNews/NonNews corpus and
 `--zero_shot_labels` adds its labels to results.txt.
 
-Not ported yet, refused by name when asked for: --pipeline_stages,
---sequence_shards, --expert_parallel on (ROADMAP.md section 1 item 14).
+Parallel runs (parallel/*): under `torchrun` (WORLD_SIZE > 1) every rank runs
+this CLI over the same folds, as JAX runs it over more than one device:
+`--pipeline_stages S` pipelines a Transformer's layers over S ranks,
+`--sequence_shards N` shards its units over N, `--expert_parallel on` runs
+SwitchBiLSTM's two towers one per rank (auto for `--switch lstm` on two
+ranks or more), and otherwise the training steps are data-parallel over
+all ranks (a `-pg` grid spreads its configurations over them). JAX's
+up-front checks and messages are kept; rank 0 writes every file
+(`logs`, checkpoints, `results.txt`, the JSON and CSV files) and the
+other ranks wait for it where they read one. `--device_epochs` runs the
+single-device loop and takes one rank.
 """
 from __future__ import annotations
 
@@ -71,12 +80,18 @@ EMBEDDING_SIZES = {
     "CNN": 30,
 }
 
-# flags of the JAX CLI that this port still refuses: (attribute, is it asked for, where it stands)
-_NOT_PORTED = (
-    ("pipeline_stages", lambda v: int(v or 0) > 1, "ROADMAP.md section 1 item 14"),
-    ("sequence_shards", lambda v: int(v or 0) > 1, "ROADMAP.md section 1 item 14"),
-    ("expert_parallel", lambda v: v == "on", "ROADMAP.md section 1 item 14"),
-)
+def _writing() -> bool:
+    """Whether this process writes the experiment's files: rank 0, or alone."""
+    from ..parallel.mesh import global_rank
+
+    return global_rank() == 0
+
+
+def _log(text: str, mode: str = "a"):
+    """Append `text` to the experiment's `logs` (rank 0 only)."""
+    if _writing():
+        with open("logs", mode) as f:
+            f.write(text)
 
 
 def _resolve_monitored(val_loss: float) -> float:
@@ -84,9 +99,8 @@ def _resolve_monitored(val_loss: float) -> float:
     carries no monitored loss; selection still needs a number, so fall back
     to the reference's 0.5 and say so in the logs."""
     if np.isnan(val_loss):
-        with open("logs", "a") as f:
-            f.write("Monitored loss synthesized: final= checkpoint carries no "
-                    "val loss; using 0.5 for config selection\n")
+        _log("Monitored loss synthesized: final= checkpoint carries no "
+             "val loss; using 0.5 for config selection\n")
         return 0.5
     return val_loss
 
@@ -152,14 +166,81 @@ def _write_grid_csv(path: str, grid: dict):
             f.write(",".join([str(i)] + [str(grid[c][i]) for c in cols]) + "\n")
 
 
+def _parallel_plan(args, n_dev: int):
+    """The run's parallel mode, with the JAX CLI's up-front checks, made
+    before the experiment folder exists and any fold trains: -> (mesh,
+    pipeline_stages, sequence_shards, expert_parallel). With more than one
+    rank the steps are data-parallel over all of them (the -pg grid's
+    configurations too) unless the pipeline, the sequence shards or the
+    expert towers own the ranks, as the JAX CLI builds its mesh."""
+    from ..parallel import mesh as mesh_lib
+
+    mesh = None
+    pipeline_stages = int(args.pipeline_stages or 0)
+    sequence_shards = int(args.sequence_shards or 0)
+    expert_parallel = {"auto": None, "on": True, "off": False}[args.expert_parallel]
+    if args.device_epochs:
+        # the device windows run the plain single-device step
+        if pipeline_stages > 1 or sequence_shards > 1 or expert_parallel is True:
+            raise SystemExit("--device_epochs is exclusive with --pipeline_stages/"
+                             "--sequence_shards/--expert_parallel on")
+        if n_dev > 1:
+            raise SystemExit(f"--device_epochs runs the single-device loop: start one rank, "
+                             f"have {n_dev}")
+        expert_parallel = False
+    elif pipeline_stages > 1 or sequence_shards > 1:
+        pass  # the pipeline / sequence shards own the ranks
+    elif (expert_parallel is None and args.architecture == "SwitchBiLSTM"
+          and args.switch == "lstm" and n_dev >= 2):
+        # mesh stays None so that the Trainer's expert-parallel auto-enable fires
+        print("[train_fit] auto-enabling expert parallelism for SwitchBiLSTM switch=lstm "
+              "(pass --expert_parallel off for data parallelism)", file=sys.stderr)
+    elif n_dev > 1:
+        mesh = mesh_lib.make_mesh(model_parallel=1)
+
+    if pipeline_stages > 1:
+        if args.architecture != "Transformer":
+            raise SystemExit(f"--pipeline_stages applies to -a Transformer, "
+                             f"not {args.architecture!r}")
+        if n_dev < pipeline_stages:
+            raise SystemExit(f"--pipeline_stages {pipeline_stages} needs that many devices, "
+                             f"have {n_dev}")
+        layer_counts = ((args.hyperparameters_search and args.number_layers_search_space)
+                        or [args.num_layers])
+        bad_nl = [nl for nl in layer_counts if nl % pipeline_stages != 0]
+        if bad_nl:
+            raise SystemExit(f"--pipeline_stages {pipeline_stages} does not divide the "
+                             f"layer count(s) {bad_nl} in the search space")
+    if sequence_shards > 1:
+        if pipeline_stages > 1:
+            raise SystemExit("--sequence_shards and --pipeline_stages are exclusive")
+        if args.architecture != "Transformer":
+            raise SystemExit(f"--sequence_shards applies to -a Transformer (local "
+                             f"attention), not {args.architecture!r}")
+        if not args.self_attention_window:
+            raise SystemExit("--sequence_shards needs local attention: set -window/"
+                             "--self_attention_window")
+        if n_dev < sequence_shards:
+            raise SystemExit(f"--sequence_shards {sequence_shards} needs that many devices, "
+                             f"have {n_dev}")
+    if expert_parallel is True:
+        if args.architecture != "SwitchBiLSTM" or args.switch != "lstm":
+            raise SystemExit("--expert_parallel on applies to -a SwitchBiLSTM with "
+                             "--switch lstm (twin LSTM towers)")
+        if n_dev < 2:
+            raise SystemExit(f"--expert_parallel on needs 2 devices, have {n_dev}")
+    return mesh, pipeline_stages, sequence_shards, expert_parallel
+
+
 def main(args):
-    for name, asked, where in _NOT_PORTED:
-        if asked(getattr(args, name, None)):
-            raise SystemExit(f"--{name} is not ported yet ({where})")
-    device = resolve_device(args.device)
+    from ..parallel import mesh as mesh_lib
+
+    n_dev = mesh_lib.world_size()
+    device = mesh_lib.rank_device(args.device) if n_dev > 1 else resolve_device(args.device)
     # an unknown architecture fails here, before the experiment folder exists
     registry.build(args.architecture, TaggerConfig(embedding_dim=8, embedding_dim2=8, hidden_dim=8,
                                                    num_layers=1, nheads=2, attention_window=4))
+    mesh, pipeline_stages, sequence_shards, expert_parallel = _parallel_plan(args, n_dev)
 
     if args.infer:
         assert os.path.exists(args.experiment_name), (
@@ -169,7 +250,10 @@ def main(args):
         assert not os.path.exists(args.experiment_name), (
             "The name of this experiment has already been used: please change "
             "experiment name or delete {} to use this name".format(args.experiment_name))
-        os.makedirs(args.experiment_name)
+        mesh_lib.barrier()  # every rank has looked before rank 0 makes it
+        if _writing():
+            os.makedirs(args.experiment_name)
+        mesh_lib.barrier()
 
     test = args.dataset == "BBC" or args.standard_split is not None
     folds = load_dataset_from_precomputed(
@@ -203,6 +287,7 @@ def main(args):
 
     CRF = registry.is_crf(args.architecture)
     domain_adapt = registry.is_domain_adapt(args.architecture)
+
     if args.architecture in ("Transformer", "BiLSTMRestrictedMHA", "RecurrentLongformer"):
         truncate, tv = True, 3600  # the reference's fixed unit budget for these
     else:
@@ -276,8 +361,7 @@ def main(args):
     results_grid_pk = {nl: [] for nl in search_space["number_layers"]}
     results_grid_wd = {nl: [] for nl in search_space["number_layers"]}
 
-    with open("logs", "w") as f:
-        f.write("Training started all right...\n")
+    _log("Training started all right...\n", mode="w")
 
     embedding_dim = infer_embedding_dim(args.encoder, args.encoder2 if double else None,
                                         args.timing_file, args.pca_reduce, args.pca_value)
@@ -330,8 +414,7 @@ def main(args):
         if why is not None:
             msg = f"--parallel_grid ignored: {why}; training serially."
             print(f"WARNING: {msg}", file=sys.stderr)
-            with open("logs", "a") as f:
-                f.write(msg + "\n")
+            _log(msg + "\n")
         else:
             grid_rates = [(d_in, d_out) for _hu, _nl, d_in, d_out in hyperparameters]
             hu0, nl0 = search_space["hidden_units"][0], search_space["number_layers"][0]
@@ -345,7 +428,7 @@ def main(args):
                     check_dir=check_dir, seed=int(args.seed),
                     gradient_clipping=args.gradient_clipping,
                     tag=f"f{index}",  # folds may share check_dir; keep their checkpoints apart
-                    device=device)
+                    mesh=mesh, device=device)
                 with profiling.stage("fit_grid"):
                     gt.fit(train_loader, None if args.no_validation else valid_loader)
                 for gi, pt in enumerate(hyperparameters):
@@ -359,10 +442,9 @@ def main(args):
     for param_tuple in hyperparameters:
         hu, nl, d_in, d_out = param_tuple
         if args.hyperparameters_search:
-            with open("logs", "a") as f:
-                f.write("Results for model with {} hidden units, {} layers, {} dropout in, "
-                        "{} dropout out and {} batch size...\n".format(hu, nl, d_in, d_out,
-                                                                       args.batch_size))
+            _log("Results for model with {} hidden units, {} layers, {} dropout in, "
+                 "{} dropout out and {} batch size...\n".format(hu, nl, d_in, d_out,
+                                                                args.batch_size))
 
         fold_results = []
         fold_all_results, fold_all_scores = {}, {}
@@ -386,6 +468,10 @@ def main(args):
                 use_end_boundary=args.use_end_boundary,
                 zero_baseline=args.zero_baseline,
                 device_epochs=args.device_epochs or None,
+                mesh=mesh,
+                pipeline_stages=pipeline_stages,
+                sequence_shards=sequence_shards,
+                expert_parallel=expert_parallel,
                 device=device,
             )
 
@@ -412,8 +498,7 @@ def main(args):
                 # configuration is then chosen on the searched metric itself
                 ckpt_params, _, _, _ = ckpt_lib.load(trainer.best_model_path)
                 threshold, sth_val = trainer.search_threshold(ckpt_params, valid_loader)
-                with open("logs", "a") as f:
-                    f.write(f"Threshold search: best={threshold} ({args.metric}={sth_val:.4f})\n")
+                _log(f"Threshold search: best={threshold} ({args.metric}={sth_val:.4f})\n")
                 best_val_loss = sth_val
             if final_params is not None and (args.no_validation or args.save_last_epoch):
                 trainer.save_final(final_params)
@@ -436,18 +521,18 @@ def main(args):
             else:
                 f1_label, pk_label, wd_label = "F1_loss", "test_loss", "WD_loss"
 
-            with open("logs", "a") as f:
-                f.write("Results for fold number {}\n".format(index))
-                if args.metric.lower() in ("b", "scaiano"):
-                    f.write("B_precision score: {}\n".format(res[pk_label]))
-                    f.write("B_recall score: {}\n".format(res[wd_label]))
-                    f.write("B_F1 score: {}\n".format(res[f1_label]))
-                    if args.metric.lower() == "b":
-                        f.write("B Similarity score: {}\n".format(res["test_loss"]))
-                else:
-                    f.write("PK score: {}\n".format(res[pk_label]))
-                    f.write("WD score: {}\n".format(res[wd_label]))
-                    f.write("F1 score: {}\n".format(res[f1_label]))
+            lines = ["Results for fold number {}\n".format(index)]
+            if args.metric.lower() in ("b", "scaiano"):
+                lines += ["B_precision score: {}\n".format(res[pk_label]),
+                          "B_recall score: {}\n".format(res[wd_label]),
+                          "B_F1 score: {}\n".format(res[f1_label])]
+                if args.metric.lower() == "b":
+                    lines.append("B Similarity score: {}\n".format(res["test_loss"]))
+            else:
+                lines += ["PK score: {}\n".format(res[pk_label]),
+                          "WD score: {}\n".format(res[wd_label]),
+                          "F1 score: {}\n".format(res[f1_label])]
+            _log("".join(lines))
 
             if args.all_results:
                 for di, file in enumerate(fold[1]):
@@ -482,17 +567,20 @@ def main(args):
             if not args.infer:
                 best_results_val = best_val_loss
             best_hu, best_nl, best_dropin, best_dropout = hu, nl, d_in, d_out
-            if args.all_results:
+            if args.all_results and _writing():
                 with open("all_results.json", "w") as f:
                     json.dump(fold_all_results, f)
-            if args.all_scores:
+            if args.all_scores and _writing():
                 with open("all_scores.json", "w") as f:
                     json.dump(fold_all_scores, f)
             if not args.infer:
                 best_name = os.path.join(check_dir, "best_model")
-                if os.path.exists(best_name):
-                    os.remove(best_name)
-                os.rename(trainer.best_model_path, best_name)
+                mesh_lib.barrier()  # every rank has read the checkpoint
+                if _writing():
+                    if os.path.exists(best_name):
+                        os.remove(best_name)
+                    os.rename(trainer.best_model_path, best_name)
+                mesh_lib.barrier()
 
             if not test:
                 # cross-validation: bootstrap confidence intervals over folds
@@ -550,7 +638,7 @@ def main(args):
     if args.zero_shot_labels is not None:
         output.append("Labels: " + str(args.zero_shot_labels))
 
-    if args.write_results:
+    if args.write_results and _writing():
         with open("results.txt", "w") as f:
             for line in output:
                 f.write("\n" + line + "\n")
@@ -558,7 +646,7 @@ def main(args):
 
     if args.hyperparameters_search:
         grids = (results_grid_f1, results_grid_pk, results_grid_wd)
-        if args.write_results:
+        if args.write_results and _writing():
             for name, grid in zip(("F1", "Pk", "WD"), grids):
                 _write_grid_csv(f"{name}_fit_results.csv", grid)
         return output, grids
@@ -608,7 +696,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--hyperparameters_search", "-hs", action="store_true")
     # a dropout-only grid through one GridTrainer per fold (train/grid.py)
     parser.add_argument("--parallel_grid", "-pg", action="store_true")
-    # accepted for the flag surface and refused when asked for (see _NOT_PORTED)
+    # the parallel modes, over the ranks of a torchrun start (parallel/*)
     parser.add_argument("--pipeline_stages", "-pps", type=int, default=0)
     parser.add_argument("--sequence_shards", "-sqs", type=int, default=0)
     parser.add_argument("--expert_parallel", default="auto", choices=["auto", "on", "off"])
@@ -657,8 +745,13 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def cli_main(argv=None):
+    """Parse and run; under torchrun (WORLD_SIZE > 1) this process joins the
+    ranks' group first and leaves it at the end."""
+    from ..parallel.multihost import process_group_from_environment
+
     args = build_parser().parse_args(argv)
-    return main(args)
+    with process_group_from_environment(args.device):
+        return main(args)
 
 
 if __name__ == "__main__":

@@ -286,7 +286,7 @@ class SheikhBiLSTM(_Tagger):
         inv = torch.where(mask > 0, inv, 0.0)
         eps = 1e-7
         bce = -(inv * torch.log(probs + eps) + (1 - inv) * torch.log(1 - probs + eps))
-        return (bce * mask).sum() / mask.sum().clamp_min(1.0)
+        return (bce * mask).sum() / losses_lib.reduce_count(mask.sum()).clamp_min(1.0)
 
     def decode(self, x, lengths, threshold):
         dot = self._coherence(x, lengths, False, None)

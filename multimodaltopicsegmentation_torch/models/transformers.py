@@ -40,7 +40,10 @@ the blocked attention path stores banded score tensors, it stays on. A
 checkpointed layer that drops re-draws the same tiles: the generator is set
 back to its state at the layer's entry for the recomputation.
 
-The sequence-parallel hooks are not here yet.
+Sequence parallelism: `BertStyleEncoder.forward` takes `attend_fn`,
+`pos_offset` and `mask` (parallel/sequence.py); `embed` and `run_layers`
+are its two halves, which the pipeline stages run apart
+(parallel/pipeline.py).
 """
 from __future__ import annotations
 
@@ -223,12 +226,20 @@ class BertLayer(nn.Module):
                            LayerNorm=nn.LayerNorm(d_model, eps=LAYER_NORM_EPS))
 
     def forward(self, x, mask, window=None, train=False, generator=None, drop=0.0,
-                attn_drop=0.0):
+                attn_drop=0.0, attend_fn=None):
         """`drop` is HF hidden_dropout_prob, on both sublayer outputs;
-        `attn_drop` attention_probs_dropout_prob, on the softmaxed weights."""
+        `attn_drop` attention_probs_dropout_prob, on the softmaxed weights.
+        `attend_fn(attention.self, x, mask, window)` -> merged heads [B, L, D]
+        replaces the attention core (the sequence-parallel halo variant,
+        which skips attention-probs dropout); every other sublayer is
+        per-position."""
         att = getattr(self.attention, "self")
-        a = _attend(att.query, att.key, att.value, x, self.nheads, mask, window,
-                    probs_drop=attn_drop if train else 0.0, generator=generator if train else None)
+        if attend_fn is not None:
+            a = attend_fn(att, x, mask, window)
+        else:
+            a = _attend(att.query, att.key, att.value, x, self.nheads, mask, window,
+                        probs_drop=attn_drop if train else 0.0,
+                        generator=generator if train else None)
         a = dropout(self.attention.output.dense(a), drop, generator, not train)
         x = self.attention.output.LayerNorm(x + a)
         # jax.nn.gelu's default is the tanh approximation
@@ -254,22 +265,46 @@ class BertStyleEncoder(nn.Module):
         self.encoder = _bag(layer=nn.ModuleList(
             BertLayer(d_model, nheads, d_ff, generator) for _ in range(n_layers)))
 
-    def forward(self, x, lengths, train=False, generator=None):
-        B, L, _ = x.shape
+    def forward(self, x, lengths, train=False, generator=None, attend_fn=None, pos_offset=None,
+                mask=None):
+        """`attend_fn`, `pos_offset` and `mask` serve the sequence-parallel
+        path, where x holds one shard's units: the positional rows start at
+        the shard's global offset and the mask comes from global positions.
+        Without them this is the plain encoder."""
+        if mask is None:
+            mask = length_mask(lengths.to(x.device), x.shape[1], x.dtype)
+        x = self.embed(x, train, generator, pos_offset)
+        return self.run_layers(x, mask, range(len(self.encoder.layer)), train, generator,
+                               attend_fn)
+
+    def embed(self, x, train=False, generator=None, pos_offset=None):
+        """The embedding sublayer: positional rows (from `pos_offset`), LayerNorm
+        and, in training, HF's hidden dropout of the normalised embeddings."""
+        L = x.shape[1]
         table = self.embeddings.position_table
-        if L > table.shape[0]:
-            raise ValueError(f"{L} units exceed the positional table's {table.shape[0]} rows")
-        mask = length_mask(lengths.to(x.device), L, x.dtype)
-        x = self.embeddings.LayerNorm(x + table[:L][None])
-        # HF BertEmbeddings drop the normalised embeddings at hidden_dropout_prob
-        x = dropout(x, self.drop, generator, not train)
-        remat = train and torch.is_grad_enabled() and self._use_remat(x.device, B, L, generator)
+        start = 0 if pos_offset is None else int(pos_offset)
+        if start + L > table.shape[0]:
+            raise ValueError(f"{start + L} units exceed the positional table's "
+                             f"{table.shape[0]} rows")
+        x = self.embeddings.LayerNorm(x + table[start:start + L][None])
+        return dropout(x, self.drop, generator, not train)
+
+    def run_layers(self, x, mask, layers, train=False, generator=None, attend_fn=None):
+        """The encoder layers of index `layers` (in order) on embedded x. A
+        layer is checkpointed in training by `_use_remat`, never with an
+        `attend_fn` unless remat is forced (its recomputation would run the
+        attention's exchange again)."""
+        B, L, _ = x.shape
+        remat = train and torch.is_grad_enabled() and (
+            self.remat is True if attend_fn is not None
+            else self._use_remat(x.device, B, L, generator))
         self.last_remat = remat
-        for i, layer in enumerate(self.encoder.layer):
+        for i in layers:
+            layer = self.encoder.layer[i]
             w = None if self.windows is None else self.windows[i]
 
             def one_layer(x, mask, _layer=layer, _w=w):
-                return _layer(x, mask, _w, train, generator, self.drop, self.attn_drop)
+                return _layer(x, mask, _w, train, generator, self.drop, self.attn_drop, attend_fn)
 
             x = _checkpoint(one_layer, generator, x, mask) if remat else one_layer(x, mask)
         return x

@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import torch
 
+from .losses import reduce_count
+
 
 def _cos(a: torch.Tensor, b: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
     # eps inside the square roots, as the JAX package has it (not
@@ -64,4 +66,4 @@ def cosine_segment_loss(h: torch.Tensor, lengths: torch.Tensor, tags: torch.Tens
     totals = (torch.where(pos_valid, pos_loss, 0.0).sum(dim=1)
               + torch.where(neg_valid, neg_loss, 0.0).sum(dim=1))
     counts = pos_valid.sum(dim=1) + neg_valid.sum(dim=1)
-    return totals.sum() / counts.sum().clamp_min(1).to(h.dtype)
+    return totals.sum() / reduce_count(counts.sum()).clamp_min(1).to(h.dtype)

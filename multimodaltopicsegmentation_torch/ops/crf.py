@@ -23,6 +23,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from . import losses as losses_lib
+
 IMPOSSIBLE = -1e4
 
 
@@ -133,7 +135,7 @@ def crf_loss(crf: CRF, features: torch.Tensor, tags: torch.Tensor,
     nll = forward_algorithm(crf.transitions, emissions, mask) \
         - gold_score(crf.transitions, emissions, tags, mask)
     valid = (mask.sum(dim=1) > 0).to(nll.dtype)
-    return (nll * valid).sum() / valid.sum().clamp_min(1.0)
+    return (nll * valid).sum() / losses_lib.reduce_count(valid.sum()).clamp_min(1.0)
 
 
 def viterbi_decode(crf: CRF, features: torch.Tensor, mask: torch.Tensor):

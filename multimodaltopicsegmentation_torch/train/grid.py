@@ -16,6 +16,11 @@ one H100 (the cuDNN LSTM's step is bound by the host's launches, which one
 Python thread makes either way; PERF.md section 6). A lockstep form
 comes back only with a design that runs faster, such as one CUDA graph or
 one LSTM launch over the configurations.
+
+With a `mesh` (parallel/mesh.py), configuration g runs its own `Trainer.fit`
+on the rank of "data" index g % data, and the histories, the best paths and
+the final parameters are gathered onto every rank: the serial grid's
+results, split over the ranks.
 """
 from __future__ import annotations
 
@@ -60,9 +65,7 @@ class GridTrainer:
         if architecture not in self.SUPPORTED:
             raise ValueError(
                 f"grid training supports {self.SUPPORTED}, not {architecture!r}")
-        if mesh is not None:
-            raise NotImplementedError(
-                "GridTrainer(mesh=...) is not ported yet: ROADMAP.md section 1 item 14")
+        self.mesh = mesh if (mesh is not None and mesh.size > 1) else None
         self.device = resolve_device(device)
         self.arch_name = architecture
         self.cfg = cfg
@@ -72,17 +75,23 @@ class GridTrainer:
         self.tag = tag
         if detect_anomaly is None:
             detect_anomaly = os.environ.get("MTS_DETECT_ANOMALY", "1") != "0"
+        # None where another rank trains the configuration
         self.trainers = [
             Trainer(architecture, self._cfg_for(g), lr=lr, optimizer=optimizer,
                     max_epochs=max_epochs, patience=patience, no_early_stop=no_early_stop,
                     monitor=monitor, check_dir=self._config_dir(g), seed=seed,
                     gradient_clipping=gradient_clipping, detect_anomaly=detect_anomaly,
-                    device=self.device)
+                    device=self.device) if self._mine(g) else None
             for g in range(len(self.grid))]
         self.best_model_paths: List[Optional[str]] = [None] * len(self.grid)
         self.histories: List[list] = [[] for _ in self.grid]
         # configuration g's parameters at its early stop (a serial run ends there)
         self._stop_params: List[Optional[dict]] = [None] * len(self.grid)
+        self._finals: List[Optional[dict]] = [None] * len(self.grid)
+
+    def _mine(self, g: int) -> bool:
+        """Whether this rank trains configuration g (all of them without a mesh)."""
+        return self.mesh is None or g % self.mesh.size == self.mesh.index
 
     def _config_dir(self, g: int) -> str:
         # `tag` keeps runs that share one check_dir apart (train_fit's folds)
@@ -99,22 +108,43 @@ class GridTrainer:
         configuration); each configuration's top-1 snapshot is written to
         `best_model_paths[g]` when its fit ends, however it ends."""
         for g, t in enumerate(self.trainers):
+            if t is None:
+                continue
             try:
                 params, self.histories[g] = t.fit(train_batches, valid_batches)
             finally:
                 self.best_model_paths[g] = t.best_model_path
             if len(self.histories[g]) < self.max_epochs:
                 self._stop_params[g] = params  # stopped early
-        return [self.final_params(g) for g in range(len(self.grid))], self.histories
+        finals = [self.final_params(g) if t is not None else None
+                  for g, t in enumerate(self.trainers)]
+        if self.mesh is not None:
+            from ..parallel.mesh import all_gather_object
+
+            for rank_out in all_gather_object(
+                    [(g, self.histories[g], self.best_model_paths[g], finals[g])
+                     for g, t in enumerate(self.trainers) if t is not None], self.mesh):
+                for g, history, path, params in rank_out:
+                    self.histories[g], self.best_model_paths[g], finals[g] = history, path, params
+        self._finals = finals
+        return finals, self.histories
 
     def final_params(self, g: int):
         """Configuration g's final parameters: those of its own early stop if
-        it stopped, else those after max_epochs."""
+        it stopped, else those after max_epochs (after `fit`, on every rank)."""
+        if self.trainers[g] is None:
+            return self._finals[g]
         if self._stop_params[g] is not None:
             return self._stop_params[g]
         return self.trainers[g].params
 
     def save_final(self, g: int) -> str:
-        """The -s_last / no_validation artefact of configuration g."""
-        self.best_model_paths[g] = self.trainers[g].save_final(self.final_params(g))
-        return self.best_model_paths[g]
+        """The -s_last / no_validation artefact of configuration g, written by
+        the rank that trained it; every rank calls it and waits for it."""
+        path = os.path.join(self._config_dir(g), "final=0.500.ckpt")
+        if self.trainers[g] is not None:
+            path = self.trainers[g].save_final(self.final_params(g))
+        if self.mesh is not None:
+            self.mesh.barrier()
+        self.best_model_paths[g] = path
+        return path

@@ -27,8 +27,19 @@ MTS_DEVICE_EPOCH_WINDOW epochs (default 10) with the decisions on the device
 and one transfer per window (train/device_fit.py), over the same device
 batches as the host loop, ragged ones included.
 
-Not ported yet (the constructor raises): `mesh`, `pipeline_stages`,
-`sequence_shards`, `expert_parallel` (ROADMAP.md section 1 item 14).
+Parallel modes (parallel/*, one process per rank, every rank running the
+same Trainer over the same batch list), with JAX's checks and messages,
+where a "device" is a rank: `mesh` (data parallelism: each rank steps on its
+share of every batch), `pipeline_stages` (GPipe over the Transformer's
+layers), `sequence_shards` (the Transformer's unit axis over the ranks) and
+`expert_parallel` (SwitchBiLSTM's two towers, one per rank; on by itself
+for switch='lstm' when two ranks or more run and no other mode is asked
+for). Each mode runs one rank per stage, shard or expert. Every rank keeps
+the whole tagger and steps it alike; losses are all-reduced before any
+decision (plateau, early stop, snapshot, threshold), rank 0 writes the
+checkpoints and the other ranks wait for them. `device_epochs` is exclusive
+with all of them. Tensor parallelism over "model" is not ported
+(`parallel.mesh.make_mesh(model_parallel > 1)` raises).
 """
 from __future__ import annotations
 
@@ -202,6 +213,23 @@ def batches_to_device(batches: List[dict], device) -> List[dict]:
     return out
 
 
+def tagger_loss(tagger, extra_kind: str = ""):
+    """loss_of(batch, generator) for a tagger and its extra input: ''
+    (none), 'domain' (SwitchBiLSTM's per-document flags) or 'double' (late
+    fusion's second modality)."""
+    def loss_of(batch, generator):
+        args = (batch["src_tokens"], batch["src_lengths"], batch["tgt_tokens"])
+        if extra_kind == "domain":
+            return tagger.loss(*args, batch["domain"], generator=generator)
+        if extra_kind == "double":
+            return tagger.loss(*args, generator=generator, x2=batch["src_tokens2"])
+        return tagger.loss(*args, generator=generator)
+    return loss_of
+
+
+RANK_SEED_STRIDE = 1_000_003  # dropout seeds of the ranks of a parallel mode
+
+
 class Trainer:
     """Single-model fit/test runner (one fold, one hyperparameter setting)."""
 
@@ -230,15 +258,6 @@ class Trainer:
         device_epochs: Optional[bool] = None,
         device="cuda",
     ):
-        for name, asked, item in (
-            ("mesh", mesh is not None, 14),
-            ("pipeline_stages", bool(pipeline_stages and pipeline_stages > 1), 14),
-            ("sequence_shards", bool(sequence_shards and sequence_shards > 1), 14),
-            ("expert_parallel", expert_parallel is True, 14),
-        ):
-            if asked:
-                raise NotImplementedError(
-                    f"Trainer({name}=...) is not ported yet: ROADMAP.md section 1 item {item}")
         self.device = resolve_device(device)
         self.arch_name = architecture
         self.cfg = cfg
@@ -267,15 +286,100 @@ class Trainer:
         self.device_epochs = device_epochs
         self.best_model_path: Optional[str] = None
         self.opt = None
+        self._step = None
+        self.group = None
         self._build()
+        self._init_parallel(mesh, pipeline_stages, sequence_shards, expert_parallel)
+        self.generator.manual_seed(self._dropout_seed())
+
+    def _init_parallel(self, mesh, pipeline_stages, sequence_shards, expert_parallel):
+        """The parallel modes, with the JAX Trainer's checks and messages (a
+        device is a rank of the process group)."""
+        from ..models.transformers import TransformerSegmenter
+        from ..parallel import mesh as mesh_lib
+
+        n_dev = mesh_lib.world_size()
+        arch, cfg = self.arch_name, self.cfg
+        self.mesh = mesh if (mesh is not None and mesh.size > 1) else None
+        self.pipe_mesh = self.seq_mesh = self.expert_mesh = None
+        if pipeline_stages and pipeline_stages > 1:
+            if not isinstance(self.tagger, TransformerSegmenter):
+                raise ValueError(f"pipeline_stages applies to the Transformer architecture, "
+                                 f"got {arch!r}")
+            if cfg.num_layers % pipeline_stages != 0:
+                raise ValueError(f"num_layers={cfg.num_layers} does not split over "
+                                 f"{pipeline_stages} pipeline stages")
+            if n_dev < pipeline_stages:
+                raise ValueError(f"pipeline_stages={pipeline_stages} needs that many "
+                                 f"devices, have {n_dev}")
+            self.pipe_mesh = self._mode_mesh("pipeline_stages", pipeline_stages, n_dev)
+            self.mesh = None  # the pipeline owns the devices
+        if sequence_shards and sequence_shards > 1:
+            if self.pipe_mesh is not None:
+                raise ValueError("sequence_shards and pipeline_stages are exclusive")
+            if not isinstance(self.tagger, TransformerSegmenter):
+                raise ValueError(f"sequence_shards applies to the Transformer architecture "
+                                 f"(local attention), got {arch!r}")
+            if not self.tagger.model.model.windows:
+                raise ValueError("sequence_shards needs LOCAL attention (set attention_window)")
+            if n_dev < sequence_shards:
+                raise ValueError(f"sequence_shards={sequence_shards} needs that many "
+                                 f"devices, have {n_dev}")
+            self.seq_mesh = self._mode_mesh("sequence_shards", sequence_shards, n_dev)
+            self.mesh = None  # the unit axis owns the devices
+        if expert_parallel is None:
+            # never over an explicit mesh (data parallelism over all ranks)
+            expert_parallel = (self.domain and cfg.switch == "lstm" and self.pipe_mesh is None
+                               and self.seq_mesh is None and self.mesh is None
+                               and not self.device_epochs and n_dev >= 2)
+        if expert_parallel:
+            from ..parallel.expert import N_EXPERTS
+
+            if not self.domain or cfg.switch != "lstm":
+                raise ValueError("expert_parallel applies to SwitchBiLSTM with "
+                                 f"switch='lstm', got {arch!r} (switch={cfg.switch!r})")
+            if n_dev < N_EXPERTS:
+                raise ValueError(f"expert_parallel needs {N_EXPERTS} devices, have {n_dev}")
+            self.expert_mesh = self._mode_mesh("expert_parallel", N_EXPERTS, n_dev)
+            self.mesh = None  # the expert axis owns the devices
+        self.group = self.mesh or self.pipe_mesh or self.seq_mesh or self.expert_mesh
+        if self.device_epochs and self.group is not None:
+            raise ValueError("device_epochs runs the plain single-device step; it is exclusive "
+                             "with mesh/pipeline_stages/sequence_shards/expert_parallel")
+        if self.group is not None:
+            if self.group.device.type != self.device.type:
+                raise ValueError(f"the Trainer runs on {self.device}, its ranks on "
+                                 f"{self.group.device}")
+            self.device = self.group.device  # this rank's card
+
+    @staticmethod
+    def _mode_mesh(name: str, n: int, n_dev: int):
+        from ..parallel import mesh as mesh_lib
+
+        if n_dev != n:
+            raise ValueError(f"{name}={n} runs one rank per part: start {n} ranks, have {n_dev}")
+        return mesh_lib.make_mesh()
+
+    @property
+    def is_writer(self) -> bool:
+        """Whether this rank writes the files (rank 0 of the group, or alone)."""
+        return self.group is None or self.group.is_first
+
+    def _wait_for_writer(self):
+        if self.group is not None:
+            self.group.barrier()
 
     def _build(self):
         """A new tagger from the seed. Weights are drawn on the CPU, so that
-        one seed gives the card and the CPU the same model; dropout draws on
-        the device."""
+        one seed gives the card, the CPU and every rank the same model;
+        dropout draws on the device, from the seed plus RANK_SEED_STRIDE
+        times the rank's index in a parallel mode."""
         init = torch.Generator().manual_seed(self.seed)
         self.tagger = registry.build(self.arch_name, self.cfg, init).to(self.device)
-        self.generator = torch.Generator(device=self.device).manual_seed(self.seed)
+        self.generator = torch.Generator(device=self.device).manual_seed(self._dropout_seed())
+
+    def _dropout_seed(self) -> int:
+        return self.seed + (0 if self.group is None else RANK_SEED_STRIDE * self.group.index)
 
     # -- parameters across the API --------------------------------------------
     def _load(self, params):
@@ -291,33 +395,91 @@ class Trainer:
             self._build()
         self._load(params)
         self.opt = make_optimizer(self.optimizer_name, list(self.tagger.parameters()), self.lr)
+        self._step = None
 
     def _set_lr(self, lr: float):
         self.opt.set_lr(lr)
 
     # -- one step ---------------------------------------------------------------
+    def _extra_kind(self) -> str:
+        return "domain" if self.domain else ("double" if self.double else "")
+
     def _loss(self, batch: dict, generator) -> torch.Tensor:
-        args = (batch["src_tokens"], batch["src_lengths"], batch["tgt_tokens"])
-        if self.domain:
-            return self.tagger.loss(*args, batch["domain"], generator=generator)
-        if self.double:
-            return self.tagger.loss(*args, generator=generator, x2=batch["src_tokens2"])
-        return self.tagger.loss(*args, generator=generator)
+        return tagger_loss(self.tagger, self._extra_kind())(batch, generator)
+
+    def _part(self, batch: dict, generator, train: bool):
+        """-> (what this rank differentiates, its part of the batch's loss) in
+        a parallel mode; the parts add up to the loss over the ranks
+        (parallel/train_step.py)."""
+        from ..parallel import train_step as TS
+
+        x, lengths, tags = batch["src_tokens"], batch["src_lengths"], batch["tgt_tokens"]
+        if self.mesh is not None:
+            share = TS.share_loss(tagger_loss(self.tagger, self._extra_kind()), self.mesh)(
+                batch, generator)
+            return share, share
+        if self.seq_mesh is not None:
+            from ..parallel.sequence import sequence_sharded_transformer_loss
+
+            share = sequence_sharded_transformer_loss(self.seq_mesh, self.tagger, x, lengths, tags,
+                                                      train, generator)
+            return share, share
+        if self.expert_mesh is not None:
+            from ..parallel.expert import expert_sharded_switch_loss
+
+            # the same loss on every rank, counted once: index 0's
+            loss = expert_sharded_switch_loss(self.expert_mesh, self.tagger, x, lengths, tags,
+                                              batch["domain"], train, generator)
+            return loss, loss if self.expert_mesh.is_first else torch.zeros_like(loss)
+        # the pipeline validates through the plain loss, as JAX does, on index 0
+        loss = self._loss(batch, generator) if self.pipe_mesh.is_first else x.new_zeros(())
+        return loss, loss
+
+    def _make_step(self):
+        from ..parallel import train_step as TS
+
+        if self.group is None:
+            def step(batch, generator):
+                self.opt.zero_grad(set_to_none=True)
+                loss = self._loss(batch, generator)
+                loss.backward()
+                if self.clip and self.clip > 0:
+                    clip_by_global_norm_(list(self.tagger.parameters()), self.clip)
+                self.opt.step()
+                return loss.detach()
+            return step
+        if self.mesh is not None:
+            return TS.make_sharded_train_step(self.tagger, self.opt, self.mesh,
+                                              self._extra_kind(), self.clip)
+        if self.pipe_mesh is not None:
+            return TS.make_pipeline_train_step(self.tagger, self.opt, self.pipe_mesh, self.clip)
+
+        def part_and_backward(batch, generator):
+            objective, part = self._part(batch, generator, True)
+            objective.backward()
+            return part
+
+        replicated = ()
+        if self.expert_mesh is not None:
+            replicated = list(self.tagger.classification.parameters())
+        return TS.make_train_step(part_and_backward, self.tagger.parameters(), self.opt,
+                                  self.group, self.clip, replicated)
 
     def _train_step(self, batch: dict) -> torch.Tensor:
         """Forward with dropout, backward, clip, optimizer step -> the loss,
-        detached and left on the device."""
-        self.opt.zero_grad(set_to_none=True)
-        loss = self._loss(batch, self.generator)
-        loss.backward()
-        if self.clip and self.clip > 0:
-            clip_by_global_norm_(list(self.tagger.parameters()), self.clip)
-        self.opt.step()
-        return loss.detach()
+        detached and left on the device (the batch's, on every rank of a
+        parallel mode)."""
+        if self._step is None:
+            self._step = self._make_step()
+        return self._step(batch, self.generator)
 
     def _eval_loss(self, batch: dict) -> torch.Tensor:
         with torch.no_grad():
-            return self._loss(batch, None)
+            if self.group is None:
+                return self._loss(batch, None)
+            from ..parallel.mesh import all_reduce_sum
+
+            return all_reduce_sum(self._part(batch, None, False)[1], self.group)
 
     def _snapshot(self):
         return {k: v.detach().clone() for k, v in self.tagger.state_dict().items()}
@@ -392,14 +554,49 @@ class Trainer:
         return self.params, history
 
     # -- fit --------------------------------------------------------------------
+    def _pad_unit_axis(self, batch: dict) -> dict:
+        """Pad the unit axis for sequence sharding: L must divide by the shard
+        count and each shard hold at least the widest attention half-window.
+        Pad units get tag -1 and zero features; lengths are unchanged."""
+        if self.seq_mesh is None:
+            return batch
+        n = self.seq_mesh.size
+        L = np.asarray(batch["src_tokens"]).shape[1]
+        windows = self.tagger.model.model.windows or [0]
+        shard_len = max(-(-L // n), max(windows) // 2)
+        pad = shard_len * n - L
+        if pad == 0:
+            return batch
+        out = dict(batch)
+        for key in ("src_tokens", "tgt_tokens", "src_tokens2"):
+            if key in batch and hasattr(batch[key], "shape"):
+                arr = np.asarray(batch[key])
+                widths = [(0, 0), (0, pad)] + [(0, 0)] * (arr.ndim - 2)
+                out[key] = np.pad(arr, widths, constant_values=-1.0 if key == "tgt_tokens" else 0)
+        return out
+
+    def _to_device(self, batches: List[dict]) -> List[dict]:
+        """Batches on the device, as this rank's mode takes them: its share
+        of the documents (mesh), the unit axis padded (sequence shards), or
+        whole."""
+        if self.mesh is not None:
+            from ..parallel.mesh import shard_batch
+
+            batches = [shard_batch(self.mesh, b) for b in batches]
+        batches = [self._pad_unit_axis(b) for b in batches]
+        return batches_to_device(batches, self.device)
+
     def fit(self, train_batches: List[dict], valid_batches: Optional[List[dict]] = None):
         """-> (final params, history). The top-1 snapshot is written to
-        `best_model_path` when the loop ends, however it ends."""
+        `best_model_path` when the loop ends, however it ends (by rank 0 in a
+        parallel mode; the other ranks wait for it when the loop ends well)."""
         if self.device_epochs:
             return self._fit_device_epochs(train_batches, valid_batches)
         self._setup()
-        train_batches = batches_to_device(train_batches, self.device)
-        valid_batches = batches_to_device(valid_batches, self.device) if valid_batches else None
+        weights = [b.get("n_global", b.get("n_real", len(b["src_lengths"])))
+                   for b in valid_batches or []]
+        train_batches = self._to_device(train_batches)
+        valid_batches = self._to_device(valid_batches) if valid_batches else None
 
         sched = PlateauScheduler(self.lr)
         best = float("inf")
@@ -412,10 +609,7 @@ class Trainer:
         try:
             for epoch in range(self.max_epochs):
                 train_losses = [self._train_step(batch) for batch in train_batches]
-                val_device, weights = [], []
-                for batch in valid_batches or []:
-                    val_device.append(self._eval_loss(batch))
-                    weights.append(batch.get("n_real", len(batch["src_lengths"])))
+                val_device = [self._eval_loss(batch) for batch in valid_batches or []]
                 # one transfer per epoch for the training losses, one for the
                 # validation losses; an empty fold keeps mean([]) -> nan
                 batch_losses = torch.stack(train_losses).tolist() if train_losses else []
@@ -456,12 +650,13 @@ class Trainer:
 
                 self._set_lr(sched.step(monitored))
         finally:
-            if best_snapshot is not None:
+            if best_snapshot is not None and self.is_writer:
                 last = self._snapshot()
                 self.tagger.load_state_dict(best_snapshot)
                 ckpt_lib.save(self.best_model_path, self.tagger.to_jax_params(), self.cfg,
                               self.arch_name, extra=best_extra)
                 self.tagger.load_state_dict(last)
+        self._wait_for_writer()
         self.params = self.tagger.to_jax_params()
         self.history = history
         return self.params, history
@@ -469,20 +664,37 @@ class Trainer:
     def save_final(self, params):
         """The reference's -s_last / no_validation path: final=0.500.ckpt."""
         path = os.path.join(self.check_dir, "final=0.500.ckpt")
-        ckpt_lib.save(path, params, self.cfg, self.arch_name, extra={"final": True})
+        if self.is_writer:
+            ckpt_lib.save(path, params, self.cfg, self.arch_name, extra={"final": True})
+        self._wait_for_writer()
         self.best_model_path = path
         return path
 
     # -- decode -----------------------------------------------------------------
     def _decode(self, batch: dict, threshold: float):
         """-> (scores, tags) of one batch as numpy; the scores are the head's
-        logits, or one Viterbi score per document for a CRF."""
+        logits, or one Viterbi score per document for a CRF. The sequence-
+        and expert-parallel modes decode through their sharded paths (the
+        unit axis padded for the shards); the others decode whole on every
+        rank, as JAX does."""
+        batch = self._pad_unit_axis(batch)
         with torch.inference_mode():
             x, lengths = (torch.as_tensor(np.asarray(batch[k])).to(self.device)
                           for k in ("src_tokens", "src_lengths"))
-            if self.domain:
+            if self.seq_mesh is not None:
+                from ..parallel.sequence import sequence_sharded_transformer_decode
+
+                scores, tags = sequence_sharded_transformer_decode(self.seq_mesh, self.tagger, x,
+                                                                   lengths, threshold)
+            elif self.domain:
                 domains = torch.as_tensor(np.asarray(batch["domain"])).to(self.device)
-                scores, tags = self.tagger.decode(x, lengths, domains, threshold)
+                if self.expert_mesh is not None:
+                    from ..parallel.expert import expert_sharded_switch_decode
+
+                    scores, tags = expert_sharded_switch_decode(self.expert_mesh, self.tagger, x,
+                                                                lengths, domains, threshold)
+                else:
+                    scores, tags = self.tagger.decode(x, lengths, domains, threshold)
             elif self.double:
                 x2 = torch.as_tensor(np.asarray(batch["src_tokens2"])).to(self.device)
                 scores, tags = self.tagger.decode(x, lengths, threshold, x2=x2)
@@ -606,6 +818,10 @@ class Trainer:
             v = float(np.mean(vals)) if vals else (1.0 if minimize else 0.0)
             if (minimize and v < best_val) or (not minimize and v > best_val):
                 best_val, best_th = v, th
+        if self.group is not None:
+            from ..parallel.mesh import broadcast_object
+
+            best_th, best_val = broadcast_object((best_th, best_val), self.group)
         return best_th, best_val
 
     def predict(self, params, batches: List[dict], threshold: float = 0.5):

@@ -159,8 +159,12 @@ def test_grid_rejects_unsupported_architectures_and_a_mesh():
         GridTrainer("Transformer", _cfg(), GRID, device="cpu")
     with pytest.raises(ValueError, match="grid training supports"):
         GridTrainer("biLSTMCRF", _cfg(), GRID, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md section 1 item 14"):
-        GridTrainer("BiLSTM", _cfg(), GRID, mesh=object(), device="cpu")
+    # a mesh spreads the configurations over its ranks (tests/test_torch_parallel.py);
+    # the one mesh the port still refuses is one with a "model" axis
+    from multimodaltopicsegmentation_torch.parallel import mesh as PM
+
+    with pytest.raises(NotImplementedError, match="model_parallel > 1"):
+        PM.make_mesh(model_parallel=2)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             GridTrainer("BiLSTM", _cfg(), GRID)  # the default device is cuda

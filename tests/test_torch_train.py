@@ -402,11 +402,28 @@ def test_fit_snapshot_survives_the_non_finite_tripwire(tmp_path, monkeypatch):
 
 
 def test_trainer_refuses_what_is_not_ported_and_a_missing_card():
+    """Without ranks the parallel modes fail the JAX Trainer's checks, with
+    its messages; tensor parallelism over "model" is refused by name."""
+    from multimodaltopicsegmentation_torch.parallel import mesh as PM
+
     _, cfg = _cfgs()
-    for kw in (dict(mesh=object()), dict(pipeline_stages=2), dict(sequence_shards=2),
-               dict(expert_parallel=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md section 1 item 14"):
-            TLoop.Trainer("BiLSTM", cfg, device="cpu", **kw)
+    switch = dataclasses.replace(cfg, switch="lstm")
+    for arch, c, kw, msg in (
+            ("BiLSTM", cfg, dict(pipeline_stages=2), "applies to the Transformer architecture"),
+            ("Transformer", cfg, dict(pipeline_stages=3), "does not split over 3 pipeline"),
+            ("Transformer", cfg, dict(pipeline_stages=2), "needs that many devices, have 1"),
+            ("Transformer", cfg, dict(sequence_shards=2), "needs that many devices, have 1"),
+            ("Transformer", dataclasses.replace(cfg, attention_window=0),
+             dict(sequence_shards=2), "needs LOCAL attention"),
+            ("Transformer", cfg, dict(sequence_shards=2, pipeline_stages=2), "needs that many"),
+            ("BiLSTM", cfg, dict(expert_parallel=True), "applies to SwitchBiLSTM"),
+            ("SwitchBiLSTM", switch, dict(expert_parallel=True), "needs 2 devices, have 1")):
+        with pytest.raises(ValueError, match=msg):
+            TLoop.Trainer(arch, c, device="cpu", **kw)
+    # alone, SwitchBiLSTM('lstm') trains its dense form
+    assert TLoop.Trainer("SwitchBiLSTM", switch, device="cpu").expert_mesh is None
+    with pytest.raises(NotImplementedError, match="model_parallel > 1"):
+        PM.make_mesh(model_parallel=2)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             TLoop.Trainer("BiLSTM", cfg)  # the default device is cuda
@@ -622,8 +639,15 @@ def test_train_cli_defaults_to_cuda_and_refuses_unported_flags(tmp_path):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             _run_train_cli(base + ["-exp", str(tmp_path / "e0")])
         assert not os.path.exists(tmp_path / "e0")
-    for flags in (["-pps", "2"], ["-sqs", "2"], ["--expert_parallel", "on"]):
-        with pytest.raises(SystemExit, match="not ported yet"):
+    # the parallel flags run JAX's up-front checks before the folder exists
+    for flags, msg in ((["-pps", "2"], "--pipeline_stages applies to -a Transformer"),
+                       (["-sqs", "2"], "--sequence_shards applies to -a Transformer"),
+                       (["--expert_parallel", "on"], "--expert_parallel on applies to"),
+                       (["-arc", "Transformer", "-pps", "2"], "needs that many devices, have 1"),
+                       (["-arc", "Transformer", "-sqs", "2", "-window", "0"],
+                        "needs local attention"),
+                       (["-de", "-sqs", "2"], "--device_epochs is exclusive")):
+        with pytest.raises(SystemExit, match=msg):
             _run_train_cli(base + ["-exp", str(tmp_path / "e1"), "--device", "cpu"] + flags)
     assert not os.path.exists(tmp_path / "e1")
     with pytest.raises(ValueError, match="No architecture named"):
