@@ -7,7 +7,8 @@ Run from the repository root, on a machine with one CUDA card:
 
 Phases (any failure exits non-zero, and no result line is printed):
 
-1. build every CUDA kernel from csrc/ (one nvcc each, started together);
+1. build every CUDA kernel from csrc/ (one nvcc each) and the native audio
+   loader (csrc/audio_native.cpp, g++), all started together;
 2. each kernel against its plain PyTorch version on the card, at the shapes
    the main paths give it, with its time (the wrapper's host gaps included,
    as in every earlier run) and its device time beside its float32 bound
@@ -99,7 +100,20 @@ Phases (any failure exits non-zero, and no result line is printed):
    `train_fit -sqs 2` and `-pps 2` with phase 6's CLI flags (results.txt
    equal to phase 6's, test scores at 1e-4) and on `predict` with the
    first one's checkpoint (tags equal to one rank's), each under its own
-   time limit.
+   time limit;
+12. the rest of the user surface: the native loader reads phase 9's
+   broadcasts bit-equal to scipy's read (one by one and as a batch) and
+   resamples a 44.1 kHz copy within 5e-3 of scipy's resample_poly;
+   `predict -lgr -ee` over phase 9's corpus on cuda with the
+   LogisticRegression of tests/data/logreg_prosodic_167.pkl, then `-lgr` on
+   cpu over the same features (identical results.pkl and segment wavs);
+   phase 3's BiLSTM and phase 4's Transformer written as reference
+   Lightning checkpoints (the Transformer under HF Longformer names) and
+   served through predict's converter fallback over phase 4's files
+   (results.pkl equal to the port checkpoint's, K2 counted: 4); the metrics
+   CLI on a synthetic experiment tree (its CSV checked, sklearn and pandas
+   not imported); `load_text_dataset` on a Choi folder; `load_audio` of an
+   mp3 (decoded by pygame, or JAX's error naming the missing decoder).
 
 The line before the last is a JSON object with one entry per kernel; the last
 line is {"ok": true, "device": {...}}. Working files go to build/chip_smoke/.
@@ -2605,6 +2619,327 @@ def parallel_phase(docs, emb_dir, labs_file, split_file, smi):
     return total
 
 
+# -- phase 12: the remaining user surface (native loader, -lgr, reference checkpoints, metrics) --
+
+LOGREG_MODEL = os.path.join(ROOT, "tests", "data", "logreg_prosodic_167.pkl")
+
+
+def _timed(fn):
+    t0 = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t0
+
+
+def native_resample_plain(x, sr_in, sr_out):
+    """The native loader's resampler in float64 numpy: its Kaiser-windowed
+    sinc (beta 8, cutoff 0.95 of the lower Nyquist, 32 zero crossings a
+    side, I0 by its 32-term series) through scipy's upfirdn. For a
+    downsampling ratio the filter's half length is a multiple of `down`, so
+    output m is upfirdn's m + half / down."""
+    from math import gcd
+
+    import numpy as np
+    from scipy.signal import upfirdn
+
+    g = gcd(sr_in, sr_out)
+    up, down = sr_out // g, sr_in // g
+    if down < up:
+        raise ValueError("native_resample_plain covers downsampling only")
+    half, cutoff = 32 * down, 0.95 * 0.5 / down
+    k = 2.0 * np.arange(1, 32)
+
+    def i0(v):
+        return 1.0 + np.cumprod((v[:, None] / k) ** 2, axis=1).sum(axis=1)
+
+    n = np.arange(-half, half + 1, dtype=np.float64)
+    sinc = np.where(n == 0, 2 * cutoff, np.sin(2 * np.pi * cutoff * n) / (np.pi * np.where(n == 0, 1, n)))
+    window = i0(8.0 * np.sqrt(np.maximum(0.0, 1.0 - (n / half) ** 2))) / i0(np.array([8.0]))
+    n_out = len(x) * up // down
+    y = upfirdn(sinc * window * up, np.asarray(x, np.float64), up, down)
+    return y[half // down : half // down + n_out]
+
+
+def native_loader_checks():
+    """Phase 9's 16 kHz broadcasts through the native loader, bit-equal to
+    scipy's read, one by one and as a batch. A 44.1 kHz copy of the 150-s
+    broadcast resampled to 16 kHz within 1e-6 of the resampler's float64
+    plain version; a 440 Hz tone at 44.1 kHz within 5e-3 of scipy's
+    resample_poly (the JAX package's own bound and input). The broadcast's
+    distance to resample_poly is printed, not gated: the two filters differ
+    in their transition band (0.95 of 8 kHz, Kaiser beta 8, against scipy's
+    8 kHz, beta 5), where the broadcast's sentence onsets put energy."""
+    import numpy as np
+    from scipy.io import wavfile
+    from scipy.signal import resample_poly
+
+    from multimodaltopicsegmentation_torch.runtime import audio_native
+
+    audio_dir = os.path.join(WORK, "front_corpus", "audio")
+    paths = [os.path.join(audio_dir, f"doc{d}.wav") for d in range(len(MAIN_SECONDS))]
+    native, wall = _timed(lambda: [audio_native.read_wav(p) for p in paths])
+    batch, batch_wall = _timed(lambda: audio_native.read_wav_batch(paths))
+    scipy_read, scipy_wall = _timed(lambda: [wavfile.read(p) for p in paths])
+    for p, (a, sr), (b, bsr), (ssr, ref) in zip(paths, native, batch, scipy_read):
+        if not (sr == bsr == ssr == SR and ref.dtype == np.float32
+                and a.tobytes() == ref.tobytes() == b.tobytes()):
+            raise RuntimeError(f"native loader: {os.path.basename(p)} differs from scipy's read")
+    copy = os.path.join(WORK, "doc1_44k.wav")
+    wavfile.write(copy, 44100, resample_poly(scipy_read[1][1], 441, 160).astype(np.float32))
+    (got, sr), res_wall = _timed(lambda: audio_native.read_wav(copy, SR))
+    x44 = wavfile.read(copy)[1]
+    plain, plain_wall = _timed(lambda: native_resample_plain(x44, 44100, SR))
+    err = float(np.abs(got - plain).max())
+    want = resample_poly(x44, 160, 441)
+    poly_err = float(np.abs(got[1000:-1000] - want[1000:-1000]).max())
+    t = np.arange(2 * 44100) / 44100
+    tone = (0.5 * np.sin(2 * np.pi * 440.0 * t)).astype(np.float32)
+    tone_got, tone_want = audio_native.resample(tone, 44100, SR), resample_poly(tone, 160, 441)
+    tone_err = float(np.abs(tone_got[1000:-1000] - tone_want[1000:-1000]).max())
+    if sr != SR or len(got) != len(plain) or not err < 1e-6 or not tone_err < 5e-3:
+        raise RuntimeError(f"native resample 44.1 -> 16 kHz: {len(got)} vs {len(plain)} samples, "
+                           f"max_abs_err {err:.3e} against the plain version (limit 1e-6), "
+                           f"{tone_err:.3e} against resample_poly on a tone (limit 5e-3)")
+    samples = sum(len(a) for a, _ in native)
+    log(f"[surface] native read_wav of phase 9's {len(paths)} broadcasts ({samples} samples): "
+        f"{wall:.3f} s, read_wav_batch {batch_wall:.3f} s, scipy {scipy_wall:.3f} s; bit-equal to "
+        f"scipy; 44.1 kHz copy of doc1 to 16 kHz {res_wall:.3f} s (plain float64 version "
+        f"{plain_wall:.3f} s), max_abs_err {err:.3e} against it (limit 1e-6) and {poly_err:.3e} "
+        f"against resample_poly (not gated); a 440 Hz tone {tone_err:.3e} against resample_poly "
+        f"(limit 5e-3)")
+
+
+def _pickled(path):
+    import pickle
+
+    with open(path, "rb") as f:
+        return pickle.load(f)
+
+
+def _files(folder):
+    from pathlib import Path
+
+    return {p.name: p.read_bytes() for p in sorted(Path(folder).iterdir())}
+
+
+def logreg_predict():
+    """predict -lgr -ee over phase 9's corpus on cuda (prosodic features on
+    the card, the pickled LogisticRegression applied in float64 there), then
+    -lgr on cpu over the features the card extracted: the same results.pkl
+    and segment wavs. (Card and CPU prosodic features differ where pYIN's
+    states do, phase 9's gate, so each device classifies the same features.)"""
+    import torch
+
+    from multimodaltopicsegmentation_torch.cli.predict import cli_main
+
+    audio_dir = os.path.join(WORK, "front_corpus", "audio")
+    emb = os.path.join(WORK, "lgr_emb")
+    exps = {d: os.path.join(WORK, f"exp_lgr_{d}") for d in ("cuda", "cpu")}
+    common = ["-lgr", "-model", LOGREG_MODEL, "-af", audio_dir, "-ef", emb, "-ui", "1.0"]
+    torch.cuda.synchronize()
+    _, wall = _timed(lambda: cli_main(common + ["-ee", "-exp", exps["cuda"], "--device", "cuda"]))
+    _, cpu_wall = _timed(lambda: cli_main(common + ["-exp", exps["cpu"], "--device", "cpu"]))
+    results = _pickled(os.path.join(exps["cuda"], "results.pkl"))
+    for d, dur in enumerate(MAIN_SECONDS):
+        tags = results.get(f"doc{d}.npy")
+        if tags is None or len(tags) != int(dur) or set(tags) - {0, 1}:
+            raise RuntimeError(f"-lgr: doc{d} got {tags and len(tags)} tags for {int(dur)} units")
+    if _files(exps["cuda"]) != _files(exps["cpu"]):
+        raise RuntimeError("-lgr: results.pkl or segment wavs differ between cuda and cpu")
+    found = sum(sum(t) for t in results.values())
+    wavs = sum(n.endswith(".wav") for n in os.listdir(exps["cuda"]))
+    log(f"[surface] predict -lgr -ee on cuda: {sum(MAIN_SECONDS) / 60:.2f} audio-min in {wall:.3f} "
+        f"s = {sum(MAIN_SECONDS) / 60 / wall:.3f} audio-min/s; {found} boundaries in "
+        f"{sum(map(len, results.values()))} units, {wavs} segment wavs; -lgr on cpu over the same "
+        f"features {cpu_wall:.3f} s: results.pkl and wavs identical")
+
+
+def _reference_layout(tagger, architecture):
+    """A port tagger's weights as a reference Lightning checkpoint's state
+    dict: the BiLSTM's names are the reference's one to one; the
+    Transformer's become HF Longformer names (position ids from padding_idx
+    + 1 = 2, so two rows before the table; one token type, zero; the global
+    projections HF builds and the converter leaves unread)."""
+    import torch
+
+    sd = {}
+    for k, v in tagger.state_dict().items():
+        v = v.detach().cpu()
+        if architecture == "Transformer" and k.endswith("embeddings.position_table"):
+            sd["model.model.embeddings.position_embeddings.weight"] = \
+                torch.cat([v.new_zeros(2, v.shape[1]), v])
+            sd["model.model.embeddings.token_type_embeddings.weight"] = v.new_zeros(1, v.shape[1])
+            continue
+        sd[k] = v
+        if architecture == "Transformer" and k.endswith("attention.self.query.weight"):
+            for g in ("query_global", "key_global", "value_global"):
+                sd[k.replace("query.weight", f"{g}.weight")] = v
+                sd[k.replace("query.weight", f"{g}.bias")] = v.new_zeros(v.shape[0])
+    return {"model." + k: v for k, v in sd.items()}
+
+
+def reference_checkpoints(flash_fwd):
+    """Phase 3's BiLSTM and phase 4's Transformer written as reference
+    Lightning checkpoints and served by predict on cuda over phase 4's files
+    through the converter; results.pkl equal to the port checkpoint's (phase
+    4's own for the Transformer), 4 K2 launches for the Transformer.
+    -> K2 launches."""
+    import torch
+
+    from multimodaltopicsegmentation_torch.cli.predict import cli_main
+    from multimodaltopicsegmentation_torch.models import registry
+    from multimodaltopicsegmentation_torch.train import checkpoints
+
+    emb = os.path.join(WORK, "long_emb")
+    launches = 0
+    for arch, ckpt, hyp in (
+            ("BiLSTM", os.path.join(WORK, "ckpt", "best_model"), os.path.join(WORK, "results.txt")),
+            ("Transformer", os.path.join(WORK, "ckpt_Transformer", "best_model"),
+             os.path.join(WORK, "results_Transformer.txt"))):
+        params, cfg, name, _ = checkpoints.load(ckpt)
+        tagger = registry.build(name, cfg)
+        tagger.load_state_dict(type(tagger).from_jax_params(params))
+        ref = os.path.join(WORK, f"ref_{arch}.ckpt")
+        state_dict = _reference_layout(tagger, arch)
+        torch.save({"state_dict": state_dict, "hyper_parameters": {}}, ref)
+        common = ["-ef", emb, "-hyp", hyp, "-bs", "8", "-rjs", "-th", "0.5", "--device", "cuda"]
+        want = os.path.join(WORK, f"exp_{arch}")  # phase 4's run for the Transformer
+        if arch == "BiLSTM":
+            cli_main(common + ["-model", ckpt, "-exp", want])
+        torch.cuda.synchronize()
+        flash_fwd.launches = 0
+        exp = os.path.join(WORK, f"exp_ref_{arch}")
+        _, wall = _timed(lambda: cli_main(common + ["-model", ref, "-exp", exp]))
+        torch.cuda.synchronize()
+        n = flash_fwd.launches
+        if n != (4 if arch == "Transformer" else 0):
+            raise RuntimeError(f"reference {arch}: {n} flash launches")
+        launches += n
+        got, expected = (_pickled(os.path.join(e, "results.pkl")) for e in (exp, want))
+        if got != expected:
+            raise RuntimeError(f"reference {arch} checkpoint: results.pkl differs from the port "
+                               "checkpoint's")
+        log(f"[surface] reference-layout {arch} checkpoint ({len(state_dict)} "
+            f"tensors) through predict's converter fallback on cuda: {wall:.3f} s (load, "
+            f"convert, decode of {len(DOC_UNITS)} files); results.pkl equal to the port "
+            f"checkpoint's; flash launches {n}")
+    return launches
+
+
+def metrics_cli():
+    """The post-hoc metrics CLI on a synthetic experiment tree of the
+    reference's layout: 3 encoders x 10 test documents; the CSV's header and
+    rows checked. Neither sklearn nor pandas is imported."""
+    import csv
+    import importlib.util
+    import pickle
+
+    import numpy as np
+
+    from multimodaltopicsegmentation_torch.cli.compute_accuracy_metrics_sentence import cli_main
+
+    rng = np.random.default_rng(12)
+    root = os.path.join(WORK, "metrics", "RadioNewsSentence")
+    os.makedirs(os.path.join(root, "RadioNewsSentence"))
+    files = [f"doc{d}.npy" for d in range(10)]
+    labs = {}
+    for f in files:
+        lab = (rng.random(int(rng.integers(40, 120))) < 0.1).astype(int)
+        lab[-1] = 1
+        labs[f[:-4]] = lab.tolist()
+    with open(os.path.join(root, "RadioNewsSentence", "labs_dict.pkl"), "wb") as fh:
+        pickle.dump(labs, fh)
+    with open(os.path.join(root, "RadioNews_split.json"), "w") as fh:
+        json.dump({"train": [], "test": files, "validation": []}, fh)
+    encoders = ["radio_news_topseg", "x-vectors",
+                "openl3/_mean_std+radio_news_roberta+radio_news_topseg"]
+    for enc in encoders:
+        out = os.path.join(root, "UnimodalExperiments", "BiLSTM_bs10_" + enc)
+        os.makedirs(out)
+        scores = {f: (4 * np.asarray(labs[f[:-4]]) - 2 + rng.standard_normal(len(labs[f[:-4]]))
+                      ).tolist() for f in files}
+        with open(os.path.join(out, "all_scores.json"), "w") as fh:
+            json.dump(scores, fh)
+    csv_path = os.path.join(WORK, "metrics", "final_result_bilstm.csv")
+    table, wall = _timed(lambda: cli_main(["radionews", "--root", root, "--encoders", *encoders,
+                                          "--output", csv_path]))
+    with open(csv_path, newline="") as f:
+        rows = list(csv.reader(f))
+    metric_cols = ["Precision", "Recall", "F1", "B-F1", "B-Precision", "B-Recall"]
+    if rows[0][:2] != ["", "Precision"] or len(rows) != 4 or rows[0][1:] != list(table) \
+            or [r[0] for r in rows[1:]] != ["0", "1", "2"] \
+            or [r[rows[0].index("embedding")] for r in rows[1:]] != encoders \
+            or not all(0 <= float(r[rows[0].index(c)]) <= 1 for r in rows[1:] for c in metric_cols) \
+            or "F1 P-value 4" not in rows[0]:
+        raise RuntimeError(f"metrics CLI: unexpected CSV {rows[:2]}")
+    imported = sorted(m for m in ("sklearn", "pandas") if m in sys.modules)
+    if imported:
+        raise RuntimeError(f"metrics CLI: {imported} imported")
+    installed = [m for m in ("sklearn", "pandas") if importlib.util.find_spec(m)]
+    log(f"[surface] metrics CLI: {len(rows) - 1} rows x {len(rows[0]) - 1} columns in {wall:.3f} s "
+        f"(10,000 bootstrap samples per cell); sklearn and pandas not imported (installed here: "
+        f"{installed or 'neither'})")
+
+
+def text_corpus_check():
+    from multimodaltopicsegmentation_torch.utils.text_corpora import load_text_dataset
+
+    root = os.path.join(WORK, "choi")
+    os.makedirs(os.path.join(root, "3-5"))
+    with open(os.path.join(root, "3-5", "0.ref"), "w") as f:
+        f.write("==========\nThe first topic starts.\nIt goes on.\n==========\nA second one.\n"
+                "==========\nA third.\nAnd its end.\n==========\n")
+    docs = load_text_dataset("choi", root)
+    want = ["The first topic starts.", "It goes on.", "A second one.", "A third.", "And its end."]
+    if len(docs) != 1 or docs[0][0] != want or docs[0][1] != [0, 1, 1, 0, 1]:
+        raise RuntimeError(f"load_text_dataset('choi'): {docs}")
+    log(f"[surface] load_text_dataset('choi'): 1 document, {len(want)} sentences, labels "
+        f"{docs[0][1]}")
+
+
+def mp3_check():
+    """load_audio of an mp3: decoded through pygame where it is installed,
+    else the JAX package's error naming the missing decoder."""
+    import importlib.util
+
+    from multimodaltopicsegmentation_torch.utils.audio import load_audio
+
+    spec = importlib.util.find_spec("pygame")
+    sample = os.path.join(os.path.dirname(spec.origin), "examples", "data",
+                          "house_lo.mp3") if spec else None
+    if sample and os.path.exists(sample):
+        audio, sr = load_audio(sample)
+        if sr != SR or audio.ndim != 1 or not 7.0 < len(audio) / sr < 7.5:
+            raise RuntimeError(f"mp3 decode: {audio.shape} at {sr}")
+        log(f"[surface] mp3: pygame decoded {os.path.basename(sample)}, {len(audio) / sr:.2f} s")
+        return
+    path = os.path.join(WORK, "no_decoder.mp3")
+    open(path, "wb").close()
+    try:
+        load_audio(path)
+    except RuntimeError as e:
+        if "mp3 decoding needs the 'pygame' package" not in str(e):
+            raise
+        log(f"[surface] mp3: no pygame here, load_audio raised: {e}")
+        return
+    raise RuntimeError("load_audio of an mp3 without pygame did not raise")
+
+
+def surface_phase(flash_fwd, smi):
+    """Phase 12; -> K2 launches (the reference Transformer's predict)."""
+    t_phase = t = time.perf_counter()
+    launches = 0
+    for what, run in (("native loader", native_loader_checks),
+                      ("predict -lgr", logreg_predict),
+                      ("reference checkpoints", lambda: reference_checkpoints(flash_fwd)),
+                      ("metrics CLI", metrics_cli), ("text corpora", text_corpus_check),
+                      ("mp3", mp3_check)):
+        launches += run() or 0
+        log(f"[surface] {what}: {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+    log(f"[surface] phase 12 on {smi}: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2630,8 +2965,11 @@ def main() -> int:
     os.environ.pop("MTS_WAV2VEC2_WEIGHTS", None)
 
     t0 = time.perf_counter()
-    for name, (secs, nvcc_log) in cuda_build.build_all().items():
-        log(f"[build] {name}: {secs:.2f} s; {'; '.join(ptxas_summary(nvcc_log))}")
+    for name, (secs, nvcc_log) in cuda_build.build_all(cuda_build.KERNELS
+                                                       + cuda_build.HOST_LIBRARIES).items():
+        what = (f"{cuda_build._cxx()} {' '.join(cuda_build.host_flags())}"
+                if name in cuda_build.HOST_LIBRARIES else "; ".join(ptxas_summary(nvcc_log)))
+        log(f"[build] {name}: {secs:.2f} s; {what}")
     if sys.argv[1:] == ["--no-key-rows"]:
         log(json.dumps({"no_key_rows": no_key_rows_ab(dev)}))
         return 0
@@ -2681,6 +3019,9 @@ def main() -> int:
     for name, n in parallel_phase(docs, emb_dir, labs_file, split_file, smi).items():
         launches[name] = launches.get(name, 0) + n
     log(f"[phase] parallel: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    launches["flash_local_attention"] += surface_phase(k2._flash_fwd, smi)
+    log(f"[phase] remaining surface: {time.perf_counter() - t:.1f} s")
 
     for name, r in results.items():
         r["launches"] = launches[name]

@@ -7,6 +7,10 @@ in-process (uniform 1-second units), decode every document on the device,
 convert boundary vectors to sample spans (`segment_audio`) and write
 per-segment wavs with +-1 s overlap and `results.pkl`.
 
+A checkpoint that is not in that format is read as a reference-trained
+torch/Lightning `TextSegmenter` checkpoint and converted in place
+(tools/convert_reference_checkpoint.py; the architecture comes from the
+results.txt's `Neural architecture` line, the threshold from `-th`).
 Every architecture of the registry decodes through the same loop; a CRF
 tagger's tags are its Viterbi paths. A late-fusion checkpoint also reads the
 second modality's embeddings (`-ef2`, default `<ef>_enc2`: the same file
@@ -21,18 +25,28 @@ each rank decodes its share and the tags are gathered
 (parallel/train_step.make_sharded_decode). Rank 0 extracts the embeddings
 (-ee) and writes `results.pkl` and the segment wavs.
 
+`-lgr` serves the paper's logistic-regression baseline instead
+(`LogReg_Predictor`): a pickled sklearn `LogisticRegression` over the
+167 prosodic features, read without sklearn (utils/sklearn_pickle.py) and
+applied in float64 on the device; `-ee` extracts the prosodic features first.
+`-gpus`, `-pca` and `-pca_v` are accepted and unused, as in the JAX CLI.
+
 Run: python -m multimodaltopicsegmentation_torch.cli.predict -ee -ef <emb dir>
        -hyp results.txt -model <checkpoint> -exp <out dir> -af <wav dir>
-       [-ef2 <second emb dir>] [--device cpu]
+       [-ef2 <second emb dir>] [-ext .mp3] [--device cpu]
+     python -m multimodaltopicsegmentation_torch.cli.predict -lgr -ee -ef <emb dir>
+       -model <model.pkl> -exp <out dir> -af <wav dir> [--device cpu]
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import pickle
 import sys
 from types import SimpleNamespace
 
+import numpy as np
 import torch
 
 from ..core.torch_setup import resolve_device
@@ -108,23 +122,44 @@ class BasePredictor:
 
 class Predictor(BasePredictor):
     """Neural predictor driven by a training results.txt (its sentence
-    encoder) and a checkpoint (architecture, config and weights)."""
+    encoder) and a checkpoint (architecture, config and weights). `pca_reduce`
+    and `pca_value` are accepted and unused, as in the JAX Predictor."""
 
-    def __init__(self, hyperparameter_file, best_model_path, adaptive_uniform_interval=False,
-                 uniform_interval=1, original_audio_extension=".wav", threshold=0.5, sr=16000,
-                 device="cuda"):
-        self.encoder = self.encoder2 = None
+    def __init__(self, hyperparameter_file, best_model_path, pca_reduce=False, pca_value=167,
+                 adaptive_uniform_interval=False, uniform_interval=1,
+                 original_audio_extension=".wav", threshold=0.5, sr=16000, device="cuda"):
+        self.encoder = self.encoder2 = self.architecture = None
         with open(hyperparameter_file) as f:
             for line in f.readlines():
                 if line.startswith("Sentence encoder"):
                     self.encoder = line.split()[2]
                 elif line.startswith("Second sentence encoder"):
                     self.encoder2 = line.split()[3]
+                elif line.startswith("Neural architecture"):
+                    self.architecture = line.split()[2]
         from ..parallel.mesh import rank_device, world_size
 
         self.device = rank_device(device) if world_size() > 1 else resolve_device(device)
 
-        params, cfg, arch_name, _ = ckpt_lib.load(best_model_path)
+        try:
+            params, cfg, arch_name, _ = ckpt_lib.load(best_model_path)
+        except Exception:
+            params = None
+        if params is None:
+            # a reference-trained torch/Lightning checkpoint: convert in place (the
+            # reference's BCE -> CE fallback, predict.py:227-256, is resolved from
+            # the classifier's shape inside the converter)
+            try:
+                from ..tools.convert_reference_checkpoint import load_torch_checkpoint
+
+                params, cfg, arch_name = load_torch_checkpoint(best_model_path,
+                                                               self.architecture)
+                cfg = dataclasses.replace(cfg, threshold=threshold)
+            except Exception as e:
+                raise RuntimeError(
+                    f"could not load checkpoint {best_model_path!r}: neither a checkpoint of "
+                    "this package nor a convertible reference torch checkpoint (see "
+                    f"tools/convert_reference_checkpoint.py): {e}") from e
         if registry.is_domain_adapt(arch_name):
             raise NotImplementedError(
                 f"predict does not support architecture {arch_name!r}: it needs per-document "
@@ -146,7 +181,7 @@ class Predictor(BasePredictor):
         self.sr = sr
 
     def predict(self, embedding_folder, experiment_name, write_audio_segments=True,
-                audio_directory=None, batch_size=8, verbose=False, add_overlap=1,
+                audio_directory=None, batch_size=8, num_gpus=0, verbose=False, add_overlap=1,
                 embedding_folder2=None):
         from ..parallel import mesh as mesh_lib
 
@@ -256,6 +291,48 @@ class Predictor(BasePredictor):
         return [(e, [0] * len(e), n) for e, n in zip(embeddings2, file_names)]
 
 
+class LogReg_Predictor(BasePredictor):
+    """The pickled-sklearn logistic-regression baseline (reference
+    predict.py:352-424) over prosodic features; the model is read by
+    utils/sklearn_pickle.py and applied in float64 on the device."""
+
+    def __init__(self, best_model_path, adaptive_uniform_interval=False, uniform_interval=1,
+                 original_audio_extension=".wav", threshold=0.5, sr=16000, device="cuda"):
+        from ..utils import sklearn_pickle
+
+        self.device = resolve_device(device)
+        self.model = sklearn_pickle.load(best_model_path)
+        self.encoder = "prosodic"
+        self.adapt = bool(adaptive_uniform_interval)
+        self.interval = uniform_interval
+        self.ext = original_audio_extension
+        self.th = threshold
+        self.sr = sr
+
+    def predict(self, embedding_folder, experiment_name, write_audio_segments=True,
+                audio_directory=None, batch_size=1, num_gpus=0, verbose=False):
+        if os.path.exists(experiment_name):
+            raise ValueError(
+                "The name of this experiment has already been used: please "
+                f"change experiment name or delete {experiment_name}"
+            )
+        os.makedirs(experiment_name)
+        results = {}
+        for file in sorted(os.listdir(embedding_folder)):
+            emb = np.load(os.path.join(embedding_folder, file))
+            pred = self.model.predict(emb, self.device) > self.th
+            results[file] = pred.astype(int).tolist()
+            if write_audio_segments:
+                audio_segs, audio = self.segment_audio(
+                    os.path.join(audio_directory, file[:-4] + self.ext), results[file])
+                for i, seg in enumerate(audio_segs):
+                    save_wav(os.path.join(experiment_name, file[:-4] + str(i) + ".wav"),
+                             audio[seg[0] : seg[1]], self.sr)
+        with open(os.path.join(experiment_name, "results.pkl"), "wb") as f:
+            pickle.dump(results, f)
+        return results
+
+
 class MyParser(argparse.ArgumentParser):
     def error(self, message):
         sys.stderr.write("error: %s\n" % message)
@@ -273,13 +350,18 @@ def build_parser():
     parser.add_argument("--best_model_path", "-model", type=str)
     parser.add_argument("--experiment_name", "-exp", default="new_experiment", type=str)
     parser.add_argument("--batch_size", "-bs", default=8, type=int)
+    parser.add_argument("--num_gpus", "-gpus", default=0, type=int)
     parser.add_argument("--verbose", "-v", action="store_true")
     parser.add_argument("--audio_folder", "-af", type=str)
+    parser.add_argument("--pca_reduce", "-pca", action="store_true")
+    parser.add_argument("--pca_value", "-pca_v", default=167, type=int)
+    parser.add_argument("--logistic_regression_baseline", "-lgr", action="store_true")
     parser.add_argument("--uniform_interval", "-ui", default=1, type=float)
     parser.add_argument("--adaptive_uniform", "-aus", action="store_true")
     parser.add_argument("--threshold", "-th", default=0.5, type=float)
     parser.add_argument("--return_just_segmentation", "-rjs", action="store_false")
-    parser.add_argument("--audio_extension", "-ext", default=".wav", choices=[".wav"])
+    # the source audio's extension for the segment-writing step
+    parser.add_argument("--audio_extension", "-ext", default=".wav", choices=[".wav", ".mp3"])
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     return parser
 
@@ -297,9 +379,32 @@ def cli_main(argv=None):
 def _run(args):
     from ..parallel.mesh import barrier, global_rank
 
+    if args.logistic_regression_baseline:
+        predictor = LogReg_Predictor(
+            args.best_model_path,
+            adaptive_uniform_interval=args.adaptive_uniform,
+            uniform_interval=args.uniform_interval,
+            original_audio_extension=args.audio_extension,
+            device=args.device,
+        )
+        if args.extract_embeddings:
+            predictor.create_embeddings(predictor.encoder, args.audio_folder,
+                                        args.embedding_folder, args.uniform_interval,
+                                        args.adaptive_uniform, args.verbose, True)
+        return predictor.predict(
+            args.embedding_folder,
+            args.experiment_name,
+            write_audio_segments=args.return_just_segmentation,
+            audio_directory=args.audio_folder,
+            batch_size=args.batch_size,
+            num_gpus=args.num_gpus,
+            verbose=args.verbose,
+        )
     predictor = Predictor(
         args.hyperparameter_file,
         args.best_model_path,
+        args.pca_reduce,
+        args.pca_value,
         adaptive_uniform_interval=args.adaptive_uniform,
         uniform_interval=args.uniform_interval,
         threshold=args.threshold,
@@ -327,6 +432,7 @@ def _run(args):
         write_audio_segments=args.return_just_segmentation,
         audio_directory=args.audio_folder,
         batch_size=args.batch_size,
+        num_gpus=args.num_gpus,
         verbose=args.verbose,
         embedding_folder2=args.embedding_folder2,
     )

@@ -1,5 +1,7 @@
 """The port stands alone: no module of multimodaltopicsegmentation_torch, and
-not chip_smoke.py, imports JAX or the JAX package."""
+not chip_smoke.py, imports JAX or the JAX package; importing every port
+module loads none of sklearn, pandas, nltk and pygame (the card's machine
+has none of them) and builds nothing."""
 import ast
 import os
 import subprocess
@@ -26,13 +28,23 @@ def test_port_modules_import_no_jax():
         "            'cli.extract_embeddings', 'cli.extract_embeddings_inference',\n"
         "            'cli.predict', 'train.device_fit', 'train.grid', 'parallel.mesh',\n"
         "            'parallel.train_step', 'parallel.sequence', 'parallel.pipeline',\n"
-        "            'parallel.expert', 'parallel.multihost', 'parallel.dryrun'):\n"
+        "            'parallel.expert', 'parallel.multihost', 'parallel.dryrun',\n"
+        "            'runtime.audio_native', 'utils.text_corpora', 'utils.logging_utils',\n"
+        "            'utils.sklearn_pickle', 'tools.convert_reference_checkpoint',\n"
+        "            'cli.compute_accuracy_metrics_sentence'):\n"
         "    assert pkg.__name__ + '.' + new in names, new\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'jaxlib', 'multimodaltopicsegmentation_tpu')]\n"
         "assert not bad, bad\n"
+        "absent = [m for m in sys.modules if m.split('.')[0] in\n"
+        "          ('sklearn', 'pandas', 'nltk', 'pygame')]\n"
+        "assert not absent, absent\n"
+        "from multimodaltopicsegmentation_torch.core import cuda_build\n"
+        "from multimodaltopicsegmentation_torch.runtime import audio_native\n"
+        "assert cuda_build._loaded == {} and cuda_build._host == {}\n"
+        "assert audio_native._lib is None\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
     subprocess.run([sys.executable, "-c", code], check=True, cwd=ROOT, env=env, timeout=300)
