@@ -96,7 +96,16 @@ Phases (any failure exits non-zero, and no result line is printed):
    phase 4's ten files. Each against the same run on one rank on the card
    (losses and logits at rtol 1e-4, identical tags, the grid at 1e-5, the
    predict's results.pkl equal to phase 4's), K2/K4/K3 launches counted per
-   rank and step; then `torchrun --standalone --nproc_per_node 2` on
+   rank and step; in the same spawn, tensor parallelism over a (data 1,
+   model 2) mesh: the Transformer (PARALLEL_EPOCHS steps over the same
+   10 x 3600 batch) and the replication BiLSTM (the batch cut to 10 x
+   TP_UNITS units: each recurrence step is one gather over the ranks), each
+   with its test decode, against one rank on the card (losses, logits and
+   the parameters after the last step at rtol 1e-4, identical tags), with
+   the staged bytes, the collectives over "model" and the peak memory per
+   rank; then a decode of phase 4's ten files through make_sharded_decode on
+   that mesh, its results equal to phase 4's results.pkl; then
+   `torchrun --standalone --nproc_per_node 2` on
    `train_fit -sqs 2` and `-pps 2` with phase 6's CLI flags (results.txt
    equal to phase 6's, test scores at 1e-4) and on `predict` with the
    first one's checkpoint (tags equal to one rank's), each under its own
@@ -2260,7 +2269,12 @@ PARALLEL_TIMEOUT = 300  # seconds for the spawn, and for each torchrun call
 # pipelined over 2 stages, 1 layer for each of the 10 microbatches
 PARALLEL_STEP_LAUNCHES = {"dp_transformer": (2, 2, 0, 2), "seq_transformer": (2, 2, 0, 2),
                           "pipe_transformer": (10, 10, 0, 10), "dp_bilstm": (0, 0, 0, 0),
-                          "expert_switch": (0, 0, 0, 0)}
+                          "expert_switch": (0, 0, 0, 0), "tp_transformer": (2, 2, 0, 2),
+                          "tp_bilstm": (0, 0, 0, 0)}
+# tensor parallelism: the model axis of the two ranks; the BiLSTM's documents
+# cut from 3600 units (a gather over the ranks, staged through host memory,
+# each recurrence step)
+TP_MODEL_PARALLEL, TP_UNITS = 2, 600
 # a Transformer test decode (2 layers, one batch), the sharded predict (2 layers x 2 chunks)
 PARALLEL_DECODE_LAUNCHES, PARALLEL_PREDICT_LAUNCHES = (2, 0, 0, 0), (4, 0, 0, 0)
 
@@ -2272,7 +2286,8 @@ def parallel_attention_shapes():
     right halo] on the line, where rank 1 has a left halo of window/2 only
     and the prefix lengths clamp(length - (1800 - window/2), 0, 1800 +
     window/2); a pipeline microbatch (one document); a data-parallel share
-    (rank 1's five documents)."""
+    (rank 1's five documents); a tensor-parallel rank (mesh data 1 x model 2:
+    each model rank attends over the whole ten-document batch)."""
     Ls = 3600 // PARALLEL_RANKS
     shapes = []
     for window in (240, 120):
@@ -2283,19 +2298,23 @@ def parallel_attention_shapes():
                    (f"pipeline microbatch, window {window}", 1, 3600, window,
                     (TRAIN_UNITS[2 if window == 240 else 6],)),
                    (f"data-parallel share 1, window {window}", 5, 3600, window,
-                    TRAIN_UNITS[5:])]
+                    TRAIN_UNITS[5:]),
+                   (f"tensor-parallel rank, window {window}", len(TRAIN_UNITS), 3600, window,
+                    TRAIN_UNITS)]
     return shapes
 
 
 def _parallel_batches(docs):
     """The phase-6 corpus as one global batch of 10 x 3600 (5 x 3600 a rank
-    under data parallelism), and the same with domain flags: the even
-    documents' names gain a leading digit (domain 1, as RadioNews files)."""
+    under data parallelism), the same with domain flags (the even
+    documents' names gain a leading digit: domain 1, as RadioNews files),
+    and the same cut to TP_UNITS units."""
     from multimodaltopicsegmentation_torch.train.data import pad_batch
 
     pad = dict(crf=False, truncate=True, truncate_value=3600)
     named = [(e, lab, f"{d}{n}" if d % 2 == 0 else n) for d, (e, lab, n) in enumerate(docs)]
-    return pad_batch(docs, **pad), pad_batch(named, domain_adapt=True, **pad)
+    return (pad_batch(docs, **pad), pad_batch(named, domain_adapt=True, **pad),
+            pad_batch(docs, crf=False, truncate=True, truncate_value=TP_UNITS))
 
 
 def _parallel_fits():
@@ -2307,16 +2326,53 @@ def _parallel_fits():
             ("expert_switch", "SwitchBiLSTM", {}, True))
 
 
+def _tp_fits():
+    """(name, architecture, on the TP_UNITS batch) of the tensor-parallel fits."""
+    return (("tp_transformer", "Transformer", False), ("tp_bilstm", "BiLSTM", True))
+
+
+def tp_predict(mesh, emb_dir, ckpt, out):
+    """Phase 4's checkpoint over phase 4's files through make_sharded_decode
+    on a mesh with a "model" axis, chunks of 8 as predict -bs 8 takes them;
+    mesh position (0, 0) writes results.pkl as predict does."""
+    import pickle
+
+    from multimodaltopicsegmentation_torch.cli.predict import load_dataset_for_inference_with_names
+    from multimodaltopicsegmentation_torch.models import registry
+    from multimodaltopicsegmentation_torch.parallel.train_step import make_sharded_decode
+    from multimodaltopicsegmentation_torch.train import checkpoints as ckpt_lib
+    from multimodaltopicsegmentation_torch.train.data import pad_batch
+
+    params, cfg, arch, _ = ckpt_lib.load(ckpt)
+    tagger = registry.build(arch, cfg)
+    tagger.load_state_dict(type(tagger).from_jax_params(params))
+    decode = make_sharded_decode(tagger.to(mesh.device).eval(), mesh, 0.5)
+    embeddings, names = load_dataset_for_inference_with_names(emb_dir)
+    docs = [(e, [0] * len(e), n) for e, n in zip(embeddings, names)]
+    results = []
+    for i in range(0, len(docs), 8):
+        batch = pad_batch(docs[i:i + 8], crf=False, bucket=True)
+        tags = decode(batch)[1].cpu().numpy()
+        results += [tags[j][:int(n)].astype(int).tolist()
+                    for j, n in enumerate(batch["src_lengths"][:len(docs[i:i + 8])])]
+    if mesh.is_first:
+        os.makedirs(out)
+        with open(os.path.join(out, "results.pkl"), "wb") as f:
+            pickle.dump(dict(zip(names, results)), f)
+    mesh.barrier()
+
+
 def _switch_config():
     import dataclasses
 
     return dataclasses.replace(training_config(), switch="lstm")
 
 
-def parallel_rank(rank, out_dir, batch, domain_batch, emb_dir, ckpt, hyp):
+def parallel_rank(rank, out_dir, batch, domain_batch, tp_batch, emb_dir, ckpt, hyp):
     """One of the two ranks (spawned, gloo on one card): each mode's fit of
-    PARALLEL_EPOCHS steps and its test decode, the grid, the sharded predict;
-    launches, walls and staged bytes counted here, in this process."""
+    PARALLEL_EPOCHS steps and its test decode, the grid, the sharded predict,
+    the tensor-parallel fits and decode; launches, walls, staged bytes,
+    collectives over "model" and peak memory counted here, in this process."""
     import pickle
 
     import numpy as np
@@ -2328,17 +2384,22 @@ def parallel_rank(rank, out_dir, batch, domain_batch, emb_dir, ckpt, hyp):
     from multimodaltopicsegmentation_torch.train.loop import Trainer
 
     mesh = PM.make_mesh()
+    tp_mesh = PM.make_mesh(model_parallel=TP_MODEL_PARALLEL)
     counters = flash_counters()
 
     def counted(fn):
         for c in counters.values():
             c.launches = 0
-        staged = PM.stats["staged_bytes"]
+        before = dict(PM.stats)
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
-        return out, dict(wall=time.perf_counter() - t0, staged=PM.stats["staged_bytes"] - staged,
+        moved = {k: PM.stats[k] - before[k] for k in PM.stats}
+        return out, dict(wall=time.perf_counter() - t0, staged=moved["staged_bytes"],
+                         gathers=moved["model_all_gathers"], reduces=moved["model_all_reduces"],
+                         peak=torch.cuda.max_memory_allocated(),
                          launches={n: c.launches for n, c in counters.items()})
 
     res = {"device": str(mesh.device), "backend": mesh.backend}
@@ -2371,6 +2432,21 @@ def parallel_rank(rank, out_dir, batch, domain_batch, emb_dir, ckpt, hyp):
         "-ef", emb_dir, "-hyp", hyp, "-model", ckpt, "-exp", os.path.join(out_dir, "predict"),
         "-bs", "8", "-rjs", "--device", "cuda"]))
     res["predict"] = dict(fit=pred)
+    for name, arch, cut in _tp_fits():
+        trainer = Trainer(arch, training_config(), lr=1e-3, max_epochs=PARALLEL_EPOCHS,
+                          monitor="training_loss", check_dir=os.path.join(out_dir, f"{name}_{rank}"),
+                          seed=0, device=mesh.device, mesh=tp_mesh)
+        b = tp_batch if cut else batch
+        (_, history), fit = counted(lambda: trainer.fit([b]))
+        (test, _, scores), dec = counted(lambda: trainer.test(trainer.params, [b]))
+        res[name] = dict(history=history, fit=fit, test=test, decode=dec, params=trainer.params,
+                         scores=[np.asarray(x, np.float32) for x in scores],
+                         position=(tp_mesh.index, tp_mesh.model_index))
+        del trainer
+        torch.cuda.empty_cache()
+    _, tp_pred = counted(lambda: tp_predict(tp_mesh, emb_dir, ckpt,
+                                            os.path.join(out_dir, "tp_predict")))
+    res["tp_predict"] = dict(fit=tp_pred)
     with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
         pickle.dump(res, f)
 
@@ -2389,8 +2465,10 @@ def _close(what, got, want, rtol=1e-4):
     return float(err.max()) if err.size else 0.0
 
 
-def _one_rank_references(batch, domain_batch):
-    """The same fits, test decodes and grid on one rank on the card (no group)."""
+def _one_rank_references(batch, domain_batch, tp_batch):
+    """The same fits, test decodes and grid on one rank on the card (no
+    group); the Transformer's and the cut BiLSTM's parameters and peak
+    memory, for the tensor-parallel fits."""
     import numpy as np
     import torch
 
@@ -2398,19 +2476,22 @@ def _one_rank_references(batch, domain_batch):
     from multimodaltopicsegmentation_torch.train.loop import Trainer
 
     refs, walls = {}, {}
-    for arch, domain in (("Transformer", False), ("BiLSTM", False), ("SwitchBiLSTM", True)):
+    for arch, b in (("Transformer", batch), ("BiLSTM", batch), ("SwitchBiLSTM", domain_batch),
+                    (f"BiLSTM_{TP_UNITS}", tp_batch)):
         cfg = _switch_config() if arch == "SwitchBiLSTM" else training_config()
-        trainer = Trainer(arch, cfg, lr=1e-3, max_epochs=PARALLEL_EPOCHS, monitor="training_loss",
+        trainer = Trainer(arch.split("_")[0], cfg, lr=1e-3, max_epochs=PARALLEL_EPOCHS,
+                          monitor="training_loss",
                           check_dir=os.path.join(WORK, f"parallel_ref_{arch}"), seed=0,
                           device="cuda")
-        b = domain_batch if domain else batch
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         _, history = trainer.fit([b])
         torch.cuda.synchronize()
         walls[arch] = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
         test, _, scores = trainer.test(trainer.params, [b])
-        refs[arch] = dict(history=history, test=test,
+        refs[arch] = dict(history=history, test=test, params=trainer.params, peak=peak,
                           scores=[np.asarray(x, np.float32) for x in scores])
         del trainer
         torch.cuda.empty_cache()
@@ -2425,6 +2506,64 @@ def _one_rank_references(batch, domain_batch):
     refs["grid"] = dict(histories=histories,
                         paths=[os.path.basename(p) for p in gt.best_model_paths])
     return refs, walls
+
+
+def tensor_parallel_checks(r, res, refs, ref_walls, counters):
+    """Rank r's tensor-parallel fits against one rank's: losses, logits and
+    the parameters after the last step at rtol 1e-4, identical tags, the
+    flash launches per step; -> the launches of its fits, decodes and the
+    sharded decode."""
+    from multimodaltopicsegmentation_torch.parallel.tensor import tree_paths
+
+    total = dict.fromkeys(counters, 0)
+    for name, arch, cut in _tp_fits():
+        got, want = res[name], refs[f"BiLSTM_{TP_UNITS}" if cut else arch]
+        if res[name]["position"] != (0, r):
+            raise RuntimeError(f"{name} rank {r}: mesh position {res[name]['position']}")
+        steps = len(got["history"])
+        if steps != PARALLEL_EPOCHS or len(want["history"]) != steps:
+            raise RuntimeError(f"{name} rank {r}: {steps} epochs")
+        err = max(_close(f"{name} rank {r} losses", [h["training_loss"] for h in got["history"]],
+                         [h["training_loss"] for h in want["history"]]),
+                  max(_close(f"{name} rank {r} logits", a, b)
+                      for a, b in zip(got["scores"], want["scores"])))
+        want_params = dict(tree_paths(want["params"]))
+        got_params = dict(tree_paths(got["params"]))
+        if sorted(got_params) != sorted(want_params):
+            raise RuntimeError(f"{name} rank {r}: parameter tree differs")
+        perr = max(_close(f"{name} rank {r} parameter {k}", got_params[k], v)
+                   for k, v in want_params.items())
+        if got["test"] != want["test"]:
+            raise RuntimeError(f"{name} rank {r}: test {got['test']} against one rank's "
+                               f"{want['test']} (tags differ)")
+        per_step = PARALLEL_STEP_LAUNCHES[name]
+        fit_want = dict(zip(counters, (n * PARALLEL_EPOCHS for n in per_step)))
+        dec_want = dict(zip(counters, PARALLEL_DECODE_LAUNCHES if arch == "Transformer"
+                            else (0, 0, 0, 0)))
+        if got["fit"]["launches"] != fit_want or got["decode"]["launches"] != dec_want:
+            raise RuntimeError(f"{name} rank {r}: launches fit {got['fit']['launches']} "
+                               f"(want {fit_want}), decode {got['decode']['launches']} "
+                               f"(want {dec_want})")
+        for k in total:
+            total[k] += got["fit"]["launches"][k] + got["decode"]["launches"][k]
+        fit = got["fit"]
+        units = TP_UNITS if cut else 3600
+        log(f"[parallel] {name} rank {r} ({arch}, 768 -> 256 x 2, 10 x {units}, mesh data 1 x "
+            f"model {TP_MODEL_PARALLEL}): fit of {PARALLEL_EPOCHS} steps {fit['wall']:.3f} s "
+            f"(one rank {ref_walls[f'BiLSTM_{TP_UNITS}' if cut else arch]:.3f} s), test decode "
+            f"{got['decode']['wall']:.3f} s; a step: staged "
+            f"{fit['staged'] / PARALLEL_EPOCHS / 2**20:.2f} MiB, "
+            f"{fit['gathers'] / PARALLEL_EPOCHS:.0f} all-gathers and "
+            f"{fit['reduces'] / PARALLEL_EPOCHS:.0f} all-reduces over 'model'; peak memory "
+            f"{fit['peak'] / 2**20:.1f} MiB a rank against one rank's {want['peak'] / 2**20:.1f} "
+            f"MiB; losses and logits {err:.3e}, parameters {perr:.3e} from one rank's (rtol "
+            f"1e-4), tags identical; launches a step {dict(zip(counters, per_step))}")
+    pred = res["tp_predict"]["fit"]["launches"]
+    if pred != dict(zip(counters, PARALLEL_PREDICT_LAUNCHES)):
+        raise RuntimeError(f"tensor-parallel decode rank {r}: launches {pred}")
+    for k in total:
+        total[k] += pred[k]
+    return total
 
 
 def _run_group(cmd, timeout, what):
@@ -2532,7 +2671,7 @@ def parallel_phase(docs, emb_dir, labs_file, split_file, smi):
     log(f"[parallel] backend rule: {PARALLEL_RANKS} ranks, {torch.cuda.device_count()} card(s) "
         f"-> {PM.backend_for(PARALLEL_RANKS, 'cuda')}; the compute stays on the card, "
         f"ppermute and all_gather stage through host memory")
-    batch, domain_batch = _parallel_batches(docs)
+    batch, domain_batch, tp_batch = _parallel_batches(docs)
     torch.cuda.empty_cache()  # the earlier phases' cached blocks, for the ranks
     out = os.path.join(WORK, "parallel")
     os.makedirs(out)
@@ -2540,14 +2679,14 @@ def parallel_phase(docs, emb_dir, labs_file, split_file, smi):
     hyp = os.path.join(WORK, "results_Transformer.txt")
     t0 = time.perf_counter()
     spawn_ranks(parallel_rank, PARALLEL_RANKS,
-                (out, batch, domain_batch, os.path.join(WORK, "long_emb"), ckpt, hyp), "cuda",
-                timeout=PARALLEL_TIMEOUT, store_dir=out)
+                (out, batch, domain_batch, tp_batch, os.path.join(WORK, "long_emb"), ckpt, hyp),
+                "cuda", timeout=PARALLEL_TIMEOUT, store_dir=out)
     spawn_wall = time.perf_counter() - t0
     ranks = []
     for r in range(PARALLEL_RANKS):
         with open(os.path.join(out, f"rank{r}.pkl"), "rb") as f:
             ranks.append(pickle.load(f))
-    refs, ref_walls = _one_rank_references(batch, domain_batch)
+    refs, ref_walls = _one_rank_references(batch, domain_batch, tp_batch)
 
     counters = flash_counters()
     total = dict.fromkeys(counters, 0)
@@ -2600,12 +2739,24 @@ def parallel_phase(docs, emb_dir, labs_file, split_file, smi):
             raise RuntimeError(f"sharded predict rank {r}: launches {pred}")
         for k in total:
             total[k] += pred[k]
+        tp_launches = tensor_parallel_checks(r, res, refs, ref_walls, counters)
+        for k in total:
+            total[k] += tp_launches[k]
     with open(os.path.join(WORK, "parallel", "predict", "results.pkl"), "rb") as f:
         sharded = pickle.load(f)
     with open(os.path.join(WORK, "exp_Transformer", "results.pkl"), "rb") as f:
         one = pickle.load(f)
     if sharded != one:
         raise RuntimeError("the sharded predict's tags differ from phase 4's one-rank predict")
+    with open(os.path.join(WORK, "parallel", "tp_predict", "results.pkl"), "rb") as f:
+        if pickle.load(f) != one:
+            raise RuntimeError("the tensor-parallel decode's tags differ from phase 4's predict")
+    log(f"[parallel] tensor-parallel decode (model {TP_MODEL_PARALLEL}) of phase 4's "
+        f"{len(DOC_UNITS)} files: {ranks[0]['tp_predict']['fit']['wall']:.3f} s, "
+        f"{ranks[0]['tp_predict']['fit']['reduces']} all-reduces and "
+        f"{ranks[0]['tp_predict']['fit']['gathers']} all-gathers over 'model' a rank, staged "
+        f"{ranks[0]['tp_predict']['fit']['staged'] / 2**20:.2f} MiB, results.pkl equal to "
+        f"phase 4's; the NCCL branch needs a card per rank and cannot run on this one card")
     log(f"[parallel] GridTrainer(mesh) G = {len(PARALLEL_GRID)} BiLSTM, {PARALLEL_GRID_EPOCHS} "
         f"epochs: {ranks[0]['grid']['fit']['wall']:.3f} s on 2 ranks against "
         f"{ref_walls['grid']:.3f} s serial, losses {grid_err:.3e} apart (rtol 1e-5), the same "

@@ -200,7 +200,10 @@ class SimpleBiLSTM(_Tagger):
         self.classifier = linear(2 * cfg.hidden_dim, 1, generator)
 
     def scores(self, x, lengths, train=False, generator=None):
-        return self.classifier(rnn_lib.run_packed(self.lstm, x, lengths))
+        if isinstance(self.lstm, nn.LSTM):
+            return self.classifier(rnn_lib.run_packed(self.lstm, x, lengths))
+        # a gate-sharded recurrence in the LSTM's place (parallel/tensor.py)
+        return self.classifier(self.lstm(x, lengths))
 
     def loss(self, x, lengths, tags, generator=None):
         return _masked_bce(self.scores(x, lengths, train=True), lengths, tags)

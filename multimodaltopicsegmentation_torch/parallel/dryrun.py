@@ -6,14 +6,17 @@ counterpart of the JAX package's `__graft_entry__.dryrun_multichip`.
 spawns N ranks (`torch.multiprocessing`, the spawn method, a `file://`
 store in a temporary folder; the backend by `mesh.backend_for`). Each runs
 one data-parallel BiLSTM step on an odd batch (padded with a zero-length
-document; the ranks' losses, gathered on rank 0, must agree), the
-sequence-sharded decode and fit, the pipeline fit and a
+document; the ranks' losses, gathered on rank 0, must agree), the same
+step over JAX's dryrun mesh (model_parallel 2 when N is even: the BiLSTM
+sharded over "model"), the sequence-sharded decode and fit, the pipeline
+fit and a
 pipelined gradient, the expert-parallel gradient (and fit, at N = 2), the
 sharded grid; then two more processes join from MTS_COORDINATOR /
 MTS_NUM_PROCESSES / MTS_PROCESS_ID (`multihost.initialize`) and take one
 data-parallel step on their own documents, which must agree. It prints one
-line, `dryrun(N): mesh=... loss=... seq_parallel=ok pipeline=ok expert=ok
-grid=ok multihost=ok ok`, and exits non-zero if any rank fails.
+line, `dryrun(N): mesh=... loss=... tp_mesh=... tp_loss=... seq_parallel=ok
+pipeline=ok expert=ok grid=ok multihost=ok ok`, and exits non-zero if any
+rank fails.
 
 `spawn_ranks` is the launcher that the tests and `chip_smoke.py` use too.
 """
@@ -108,6 +111,18 @@ def _dryrun_rank(rank, out_dir):
         done["loss"] = fit("BiLSTM", cfg, batch, mesh=mesh)
         losses = mesh_lib.gather_object(done["loss"], mesh)  # one replicated loss
         assert losses is None or len(set(losses)) == 1, losses
+
+        # the same step over JAX's dryrun mesh: model_parallel 2 on an even count
+        m = 2 if n % 2 == 0 else 1
+        tp_mesh = mesh_lib.make_mesh(model_parallel=m)
+        B = max(n // m, 1) * 2 - 1
+        tp_batch = {"src_tokens": rng.standard_normal((B, L, 32)).astype(np.float32),
+                    "tgt_tokens": (rng.random((B, L)) < 0.1).astype(np.float32),
+                    "src_lengths": np.full((B,), L, np.int32), "n_real": B}
+        done["tp_loss"] = fit("BiLSTM", cfg, tp_batch, mesh=tp_mesh)
+        losses = mesh_lib.gather_object(done["tp_loss"], tp_mesh)
+        assert losses is None or len(set(losses)) == 1, losses
+        done["tp_mesh"] = tp_mesh.shape
 
         # sequence parallelism: the decode, then one fit step over a unit
         # axis the Trainer pads to a multiple of the shards
@@ -227,7 +242,8 @@ def dryrun(nproc: int, device="cpu", timeout: float = 600.0) -> str:
                 losses.append(float(f.read()))
         if not (np.isfinite(losses[0]) and losses[0] == losses[1]):
             raise RuntimeError(f"the two processes disagree: losses {losses}")
-    return (f"dryrun({nproc}): mesh={done['mesh']} loss={done['loss']:.5f} seq_parallel=ok "
+    return (f"dryrun({nproc}): mesh={done['mesh']} loss={done['loss']:.5f} "
+            f"tp_mesh={done['tp_mesh']} tp_loss={done['tp_loss']:.5f} seq_parallel=ok "
             f"pipeline=ok expert=ok grid=ok multihost=ok ok")
 
 

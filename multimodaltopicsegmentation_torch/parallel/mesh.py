@@ -17,10 +17,16 @@ them to host memory, run the transfer and copy the result back inside the
 op (`stats["staged_bytes"]` counts what they copy out), so the compute never
 leaves the card.
 
-Tensor parallelism over "model" is not ported: `model_parallel > 1` raises.
-cuDNN's `nn.LSTM` takes W_hh whole, so the gate-sharded W_hh that JAX's
-`param_spec` describes has no place in the port's recurrent stacks.
-`param_spec` keeps the rule for that later work.
+A mesh of n ranks with `model_parallel` m is JAX's grid
+`ranks.reshape(n // m, m)`: global rank r sits at data r // m, model r % m.
+Each rank holds two subgroups, `group` (its data group: the ranks that
+share its model coordinate) and `model_group` (those that share its data
+coordinate). `index` and `size` are the "data" coordinate and size, so that
+everything that splits documents, gathers results or reduces data-parallel
+gradients runs over `group` as it does with m = 1. The "model" axis is
+tensor parallelism (parallel/tensor.py): `param_spec` / `shard_spec` say
+which axis of a parameter is split over it, `shard_of` takes this rank's
+slice.
 """
 from __future__ import annotations
 
@@ -35,12 +41,9 @@ import torch.distributed as dist
 
 from ..core.torch_setup import resolve_device
 
-stats = {"staged_bytes": 0}
+# bytes copied to the host by staged collectives; collectives over "model"
+stats = {"staged_bytes": 0, "model_all_gathers": 0, "model_all_reduces": 0}
 _STATE = {"device": None}
-
-TP_REASON = ("model_parallel > 1 (tensor parallelism over 'model') is not ported: cuDNN's "
-             "nn.LSTM takes W_hh whole, so a gate-sharded W_hh has no place in the port's "
-             "recurrent stacks (ROADMAP.md section 1 item 14)")
 
 
 def backend_for(world_size: int, device) -> str:
@@ -103,64 +106,99 @@ def barrier():
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """A process group with the ("data", "model") shape ("model" is 1: see
-    the module's docstring). `ranks` are the global ranks in mesh order;
-    `index` is this rank's place among them, its "data" coordinate."""
+    """A ("data", "model") grid of ranks. `group` / `ranks` are this rank's
+    data group and its global ranks in data order; `model_group` /
+    `model_ranks` its model group in model order (empty with model 1);
+    `mesh_group` every rank of the mesh (None: the default group or, with
+    model 1, `group`). `index` is this rank's "data" coordinate."""
 
     group: object
     ranks: tuple
     device: torch.device
     backend: str
+    model_group: object = None
+    model_ranks: tuple = ()
+    mesh_group: object = None
 
     @property
     def size(self) -> int:
         return len(self.ranks)
 
     @property
+    def model_size(self) -> int:
+        return max(len(self.model_ranks), 1)
+
+    @property
+    def n_ranks(self) -> int:
+        return self.size * self.model_size
+
+    @property
     def shape(self) -> dict:
-        return {"data": self.size, "model": 1}
+        return {"data": self.size, "model": self.model_size}
 
     @property
     def index(self) -> int:
         return self.ranks.index(global_rank())
 
     @property
+    def model_index(self) -> int:
+        return self.model_ranks.index(global_rank()) if self.model_ranks else 0
+
+    @property
     def is_first(self) -> bool:
-        return self.index == 0
+        """Mesh position (0, 0): the rank that writes."""
+        return self.index == 0 and self.model_index == 0
 
     def barrier(self):
+        """Wait for every rank of the mesh."""
+        group = self.mesh_group if self.model_ranks else self.group
         if self.backend == "nccl":
-            dist.barrier(group=self.group, device_ids=[self.device.index])
+            dist.barrier(group=group, device_ids=[self.device.index])
         else:
-            dist.barrier(group=self.group)
+            dist.barrier(group=group)
 
 
 def make_mesh(n_devices: Optional[int] = None, model_parallel: int = 1) -> Optional[Mesh]:
     """("data", "model") mesh over the first n ranks (default: all) of the
-    initialised default group. Every rank must call it (a smaller mesh makes
-    a subgroup); a rank outside the first n gets None."""
-    if model_parallel != 1:
-        raise NotImplementedError(TP_REASON)
+    initialised default group, laid out as JAX lays out its devices: rank r
+    at data r // model_parallel, model r % model_parallel. Every rank must
+    call it (new subgroups are collective); a rank outside the first n gets
+    None. n must divide by model_parallel."""
     if not (dist.is_available() and dist.is_initialized()):
         raise RuntimeError("no process group: call parallel.mesh.init_process_group or "
                            "parallel.multihost.initialize first")
     world = dist.get_world_size()
     n = world if n_devices is None else int(n_devices)
+    m = int(model_parallel)
+    if m < 1 or n % m != 0:
+        raise ValueError(f"model_parallel={m} does not divide a mesh of {n} ranks")
     if not 1 <= n <= world:
         raise ValueError(f"a mesh of {n} ranks needs that many, have {world}")
-    group = None if n == world else dist.new_group(list(range(n)))
-    if global_rank() >= n:
-        return None
     device = _STATE["device"] or rank_device("cuda")
-    return Mesh(group, tuple(range(n)), device, dist.get_backend(group))
+    me = global_rank()
+    mesh_group = None if n == world else dist.new_group(list(range(n)))
+    if m == 1:
+        if me >= n:
+            return None
+        return Mesh(mesh_group, tuple(range(n)), device, dist.get_backend(mesh_group))
+    grid = np.arange(n).reshape(n // m, m)
+    # every rank creates every subgroup, in one order
+    data_groups = [(tuple(col), dist.new_group(col.tolist())) for col in grid.T]
+    model_groups = [(tuple(row), dist.new_group(row.tolist())) for row in grid]
+    if me >= n:
+        return None
+    ranks, group = data_groups[me % m]
+    model_ranks, model_group = model_groups[me // m]
+    return Mesh(group, tuple(int(r) for r in ranks), device, dist.get_backend(mesh_group),
+                model_group, tuple(int(r) for r in model_ranks), mesh_group)
 
 
 def param_spec(path: str) -> tuple:
     """The JAX partition rule of a tagger parameter, by its tree path, as a
     tuple of axis names per dimension (() = replicated): gate-stacked
-    recurrent weights w_ih/w_hh [in, 4H] shard the gate axis over "model",
-    biases [4H] too, linear heads their input axis. Kept for the tensor-
-    parallel work; nothing in the port shards by it yet."""
+    recurrent weights w_ih/w_hh [in, G*H] shard the gate axis over "model",
+    biases [G*H] (and every linear's b [out]) too, linear weights w [in, out]
+    their input axis."""
     leaf = path.split("/")[-1]
     if leaf in ("w_ih", "w_hh"):
         return (None, "model")
@@ -169,6 +207,27 @@ def param_spec(path: str) -> tuple:
     if leaf == "w":
         return ("model", None)
     return ()
+
+
+def shard_spec(path: str, shape, mesh: Mesh) -> tuple:
+    """`param_spec` for one leaf of `shape` on `mesh`, replicated (()) when
+    a sharded axis does not divide by its mesh size (JAX's
+    `param_shardings`)."""
+    spec = param_spec(path)
+    for dim, name in enumerate(spec):
+        if name is not None and shape[dim] % mesh.shape[name] != 0:
+            return ()
+    return spec
+
+
+def shard_of(x: torch.Tensor, spec: tuple, mesh: Mesh) -> torch.Tensor:
+    """This rank's slice of x under `spec` (a view): each dimension named
+    "model" is split into model_size equal parts, the model_index-th kept."""
+    for dim, name in enumerate(spec):
+        if name == "model":
+            part = x.shape[dim] // mesh.model_size
+            x = x.narrow(dim, mesh.model_index * part, part)
+    return x
 
 
 # -- batches ------------------------------------------------------------------
@@ -223,27 +282,39 @@ def _staged(t: torch.Tensor, mesh: Mesh) -> bool:
     return mesh.backend == "gloo" and t.device.type == "cuda"
 
 
+def axis_group(mesh: Mesh, axis: str):
+    """The subgroup of this rank along a mesh axis ("data" or "model")."""
+    if axis == "data":
+        return mesh.group
+    if axis == "model":
+        return mesh.model_group
+    raise ValueError(f"no mesh axis {axis!r}")
+
+
 class _AllReduceSum(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, mesh):
+    def forward(ctx, x, mesh, axis):
         y = x.clone()
-        dist.all_reduce(y, group=mesh.group)
+        if axis == "model":
+            stats["model_all_reduces"] += 1
+        dist.all_reduce(y, group=axis_group(mesh, axis))
         return y
 
     @staticmethod
     def backward(ctx, g):
-        return g, None
+        return g, None, None
 
 
-def all_reduce_sum(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """Sum over the mesh's ranks, on every rank.
+def all_reduce_sum(x: torch.Tensor, mesh: Mesh, axis: str = "data") -> torch.Tensor:
+    """Sum over the ranks of this rank's `axis` group ("data": the mesh's
+    ranks with model 1), on every one of them.
 
     Autograd: the identity. The result is consumed in full by every rank
     (a replicated loss, each rank holding the same objective), so each
     rank's input gets that rank's cotangent as it is; summing the cotangents
     again, as `torch.distributed.nn.functional.all_reduce` does, would count
     the objective once per rank."""
-    return _AllReduceSum.apply(x, mesh)
+    return _AllReduceSum.apply(x, mesh, axis)
 
 
 def _exchange(sends, recvs, mesh: Mesh) -> list:

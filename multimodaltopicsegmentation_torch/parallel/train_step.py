@@ -11,7 +11,13 @@ replicated state:
 - data parallelism over "data" (`make_sharded_train_step`): each rank's part
   is its share's masked sum over the batch's count, which `global_counts`
   sums over the ranks before any rank divides (a rank's local mean is not
-  its share of the loss);
+  its share of the loss). With a "model" axis the tagger is sharded over it
+  (parallel/tensor.py): the model ranks of a data coordinate compute one
+  replicated loss, the gradients are summed over the data group only (a
+  shard's gradient stays on its model rank, a replicated one is already
+  the same on every model rank), and clipping takes the norm of the whole
+  tree (the shards' squares summed over the model group, each replicated
+  parameter counted once);
 - the sequence-parallel step (parallel/sequence.py) is the same with the
   unit axis split instead of the documents;
 - the pipeline (`make_pipeline_train_step`): the last stage's loss, zero
@@ -31,10 +37,11 @@ import torch.distributed as dist
 from ..ops import losses as losses_lib
 from ..train.loop import clip_by_global_norm_, tagger_loss
 from . import mesh as mesh_lib
+from . import tensor as tensor_lib
 
 
 def count_reducer(mesh) -> Callable:
-    """For `ops.losses.global_counts`: a count summed over the mesh."""
+    """For `ops.losses.global_counts`: a count summed over the data group."""
     def reduce(count):
         out = count.clone()
         dist.all_reduce(out, group=mesh.group)
@@ -43,9 +50,9 @@ def count_reducer(mesh) -> Callable:
 
 
 def all_reduce_grads(params: Iterable[torch.nn.Parameter], mesh, replicated=()) -> None:
-    """Sum each parameter's gradient over the mesh in one flat buffer (a
-    rank that did not touch a parameter adds zeros); the gradients of
-    `replicated` parameters, computed alike on every rank, are mesh index
+    """Sum each parameter's gradient over the data group in one flat buffer
+    (a rank that did not touch a parameter adds zeros); the gradients of
+    `replicated` parameters, computed alike on every rank, are data index
     0's instead."""
     replicated = {id(p) for p in replicated}
     summed = [p for p in params if id(p) not in replicated]
@@ -64,19 +71,39 @@ def all_reduce_grads(params: Iterable[torch.nn.Parameter], mesh, replicated=()) 
             offset += n
 
 
+def sharded_square_norm(mesh, sharded) -> Callable:
+    """square_norm(params) for `clip_by_global_norm_`: the squares of the
+    `sharded` parameters' gradients summed over the model group, plus those
+    of the others (replicated on every model rank), once."""
+    ids = {id(p) for p in sharded}
+
+    def square_norm(params):
+        grads = [p for p in params if p.grad is not None]
+        own = sum((p.grad * p.grad).sum() for p in grads if id(p) in ids)
+        rest = sum((p.grad * p.grad).sum() for p in grads if id(p) not in ids)
+        own = torch.as_tensor(own, dtype=torch.float32, device=mesh.device).clone()
+        mesh_lib.stats["model_all_reduces"] += 1
+        dist.all_reduce(own, group=mesh.model_group)
+        return own + rest
+
+    return square_norm
+
+
 def make_train_step(part_and_backward: Callable, params, optimizer, mesh, clip: float = 0.0,
-                    replicated=()) -> Callable:
+                    replicated=(), sharded=()) -> Callable:
     """step(batch, generator) -> the batch's loss (detached, on the device,
     the same on every rank). `part_and_backward(batch, generator)` leaves
-    this rank's gradients in `.grad` and returns its part of the loss."""
+    this rank's gradients in `.grad` and returns its part of the loss;
+    `sharded` are the parameters held in shards over "model"."""
     params = list(params)
+    square_norm = sharded_square_norm(mesh, sharded) if sharded else None
 
     def step(batch, generator):
         optimizer.zero_grad(set_to_none=True)
         part = part_and_backward(batch, generator)
         all_reduce_grads(params, mesh, replicated)
         if clip and clip > 0:
-            clip_by_global_norm_(params, clip)
+            clip_by_global_norm_(params, clip, square_norm)
         optimizer.step()
         return mesh_lib.all_reduce_sum(part.detach(), mesh)
 
@@ -94,8 +121,15 @@ def share_loss(loss_of: Callable, mesh) -> Callable:
 
 def make_sharded_train_step(tagger, optimizer, mesh, extra_kind: str = "",
                             clip: float = 0.0) -> Callable:
-    """Data parallelism over "data": step(share, generator) on this rank's
-    share of the batch (`mesh.shard_batch`) -> the batch's loss."""
+    """Data parallelism over "data", tensor parallelism over "model":
+    step(share, generator) on this rank's share of the batch
+    (`mesh.shard_batch`) -> the batch's loss. With a "model" axis the tagger
+    must be sharded (`parallel.tensor.tensor_parallel`) before its optimizer
+    is built over its parameters."""
+    if mesh.model_size > 1 and getattr(tagger, "tp_mesh", None) is not mesh:
+        raise ValueError("a 'model' mesh axis needs the tagger sharded over it: call "
+                         "parallel.tensor.tensor_parallel(tagger, mesh) before building its "
+                         "optimizer")
     part = share_loss(tagger_loss(tagger, extra_kind), mesh)
 
     def part_and_backward(batch, generator):
@@ -103,7 +137,8 @@ def make_sharded_train_step(tagger, optimizer, mesh, extra_kind: str = "",
         loss.backward()
         return loss
 
-    return make_train_step(part_and_backward, tagger.parameters(), optimizer, mesh, clip)
+    return make_train_step(part_and_backward, tagger.parameters(), optimizer, mesh, clip,
+                           sharded=tensor_lib.sharded_parameters(tagger))
 
 
 def make_pipeline_train_step(segmenter, optimizer, mesh, clip: float = 0.0) -> Callable:
@@ -121,9 +156,14 @@ def make_pipeline_train_step(segmenter, optimizer, mesh, clip: float = 0.0) -> C
 
 
 def make_sharded_decode(tagger, mesh, threshold: float = 0.5) -> Callable:
-    """Documents over "data": decode(batch) -> (scores, tags) of the whole
-    batch as tensors on every rank (rank 0 writes them); each rank decodes
-    its share (`mesh.shard_batch`) and the shares are gathered."""
+    """Documents over "data", the tagger over "model": decode(batch) ->
+    (scores, tags) of the whole batch as tensors on every rank (mesh
+    position (0, 0) writes them); each data coordinate's model group decodes
+    its share (`mesh.shard_batch`) once, replicated, and the shares are
+    gathered over the data group. A tagger that is not sharded yet is
+    sharded here (`parallel.tensor.tensor_parallel`, in place)."""
+    tensor_lib.tensor_parallel(tagger, mesh)
+
     def decode(batch):
         share = mesh_lib.shard_batch(mesh, batch)
         x = torch.as_tensor(share["src_tokens"]).to(mesh.device)

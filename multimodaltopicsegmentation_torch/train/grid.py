@@ -18,9 +18,11 @@ comes back only with a design that runs faster, such as one CUDA graph or
 one LSTM launch over the configurations.
 
 With a `mesh` (parallel/mesh.py), configuration g runs its own `Trainer.fit`
-on the rank of "data" index g % data, and the histories, the best paths and
+on the ranks of "data" index g % data, and the histories, the best paths and
 the final parameters are gathered onto every rank: the serial grid's
-results, split over the ranks.
+results, split over the ranks. As in JAX, only the configurations are split:
+the model ranks of a data coordinate run its configurations alike, whole,
+and only model index 0 writes their files.
 """
 from __future__ import annotations
 
@@ -65,7 +67,7 @@ class GridTrainer:
         if architecture not in self.SUPPORTED:
             raise ValueError(
                 f"grid training supports {self.SUPPORTED}, not {architecture!r}")
-        self.mesh = mesh if (mesh is not None and mesh.size > 1) else None
+        self.mesh = mesh if (mesh is not None and mesh.n_ranks > 1) else None
         self.device = resolve_device(device)
         self.arch_name = architecture
         self.cfg = cfg
@@ -81,6 +83,7 @@ class GridTrainer:
                     max_epochs=max_epochs, patience=patience, no_early_stop=no_early_stop,
                     monitor=monitor, check_dir=self._config_dir(g), seed=seed,
                     gradient_clipping=gradient_clipping, detect_anomaly=detect_anomaly,
+                    writer=self.mesh is None or self.mesh.model_index == 0,
                     device=self.device) if self._mine(g) else None
             for g in range(len(self.grid))]
         self.best_model_paths: List[Optional[str]] = [None] * len(self.grid)
@@ -126,6 +129,7 @@ class GridTrainer:
                      for g, t in enumerate(self.trainers) if t is not None], self.mesh):
                 for g, history, path, params in rank_out:
                     self.histories[g], self.best_model_paths[g], finals[g] = history, path, params
+            self.mesh.barrier()  # the model ranks wait for model index 0's files
         self._finals = finals
         return finals, self.histories
 

@@ -29,17 +29,21 @@ batches as the host loop, ragged ones included.
 
 Parallel modes (parallel/*, one process per rank, every rank running the
 same Trainer over the same batch list), with JAX's checks and messages,
-where a "device" is a rank: `mesh` (data parallelism: each rank steps on its
-share of every batch), `pipeline_stages` (GPipe over the Transformer's
-layers), `sequence_shards` (the Transformer's unit axis over the ranks) and
-`expert_parallel` (SwitchBiLSTM's two towers, one per rank; on by itself
-for switch='lstm' when two ranks or more run and no other mode is asked
-for). Each mode runs one rank per stage, shard or expert. Every rank keeps
-the whole tagger and steps it alike; losses are all-reduced before any
-decision (plateau, early stop, snapshot, threshold), rank 0 writes the
-checkpoints and the other ranks wait for them. `device_epochs` is exclusive
-with all of them. Tensor parallelism over "model" is not ported
-(`parallel.mesh.make_mesh(model_parallel > 1)` raises).
+where a "device" is a rank: `mesh` (data parallelism: each data coordinate
+steps on its share of every batch; with a "model" axis, the tagger is
+sharded over it by `parallel.tensor.tensor_parallel` and each rank holds
+its shards and their optimizer state), `pipeline_stages` (GPipe over the
+Transformer's layers), `sequence_shards` (the Transformer's unit axis over
+the ranks) and `expert_parallel` (SwitchBiLSTM's two towers, one per rank;
+on by itself for switch='lstm' when two ranks or more run and no other mode
+is asked for). Each mode runs one rank per stage, shard or expert. Outside
+the "model" axis every rank keeps the whole tagger and steps it alike;
+losses are all-reduced before any decision (plateau, early stop, snapshot,
+threshold), mesh position (0, 0) writes the checkpoints (the single-device
+layout) and the other ranks wait for them. The model ranks of one data
+coordinate draw the same dropout masks: a rank's seed depends on its data
+coordinate only. `device_epochs` is exclusive with all of them, and a
+"model" axis with pipeline_stages, sequence_shards and expert_parallel.
 """
 from __future__ import annotations
 
@@ -160,13 +164,16 @@ def make_optimizer(name: str, params, lr: float) -> Optimizer:
     return Optimizer(name, params, lr)
 
 
-def clip_by_global_norm_(params, max_norm: float) -> torch.Tensor:
+def clip_by_global_norm_(params, max_norm: float, square_norm=None) -> torch.Tensor:
     """Scale the gradients in place so that their global L2 norm is at most
     `max_norm`: untouched below it, else g / norm * max_norm (no epsilon in
     the divisor, unlike `torch.nn.utils.clip_grad_norm_`). -> the norm before
-    clipping, on the device; nothing is pulled to the host."""
+    clipping, on the device; nothing is pulled to the host. `square_norm(params)`
+    gives the squared norm where the gradients are held in shards
+    (parallel/train_step.py); by default it is the sum of their squares."""
     grads = [p.grad for p in params if p.grad is not None]
-    norm = torch.sqrt(sum((g * g).sum() for g in grads))
+    square = sum((g * g).sum() for g in grads) if square_norm is None else square_norm(params)
+    norm = torch.sqrt(square)
     for g in grads:
         g.copy_(torch.where(norm < max_norm, g, g / norm * max_norm))
     return norm
@@ -256,6 +263,7 @@ class Trainer:
         sequence_shards: int = 0,
         expert_parallel: Optional[bool] = None,
         device_epochs: Optional[bool] = None,
+        writer: bool = True,
         device="cuda",
     ):
         self.device = resolve_device(device)
@@ -287,9 +295,12 @@ class Trainer:
         self.best_model_path: Optional[str] = None
         self.opt = None
         self._step = None
-        self.group = None
+        self.group = self.tp_mesh = None
+        # False: another process writes this Trainer's files (train/grid.py's model ranks)
+        self.writer = writer
         self._build()
         self._init_parallel(mesh, pipeline_stages, sequence_shards, expert_parallel)
+        self._shard()
         self.generator.manual_seed(self._dropout_seed())
 
     def _init_parallel(self, mesh, pipeline_stages, sequence_shards, expert_parallel):
@@ -300,7 +311,12 @@ class Trainer:
 
         n_dev = mesh_lib.world_size()
         arch, cfg = self.arch_name, self.cfg
-        self.mesh = mesh if (mesh is not None and mesh.size > 1) else None
+        self.mesh = mesh if (mesh is not None and mesh.n_ranks > 1) else None
+        if self.mesh is not None and self.mesh.model_size > 1 and (
+                (pipeline_stages and pipeline_stages > 1)
+                or (sequence_shards and sequence_shards > 1) or expert_parallel):
+            raise ValueError("a 'model' mesh axis (tensor parallelism) is exclusive with "
+                             "pipeline_stages/sequence_shards/expert_parallel")
         self.pipe_mesh = self.seq_mesh = self.expert_mesh = None
         if pipeline_stages and pipeline_stages > 1:
             if not isinstance(self.tagger, TransformerSegmenter):
@@ -343,6 +359,8 @@ class Trainer:
             self.expert_mesh = self._mode_mesh("expert_parallel", N_EXPERTS, n_dev)
             self.mesh = None  # the expert axis owns the devices
         self.group = self.mesh or self.pipe_mesh or self.seq_mesh or self.expert_mesh
+        if self.mesh is not None and self.mesh.model_size > 1:
+            self.tp_mesh = self.mesh
         if self.device_epochs and self.group is not None:
             raise ValueError("device_epochs runs the plain single-device step; it is exclusive "
                              "with mesh/pipeline_stages/sequence_shards/expert_parallel")
@@ -362,8 +380,9 @@ class Trainer:
 
     @property
     def is_writer(self) -> bool:
-        """Whether this rank writes the files (rank 0 of the group, or alone)."""
-        return self.group is None or self.group.is_first
+        """Whether this rank writes the files (mesh position (0, 0) of the
+        group, or alone)."""
+        return self.writer and (self.group is None or self.group.is_first)
 
     def _wait_for_writer(self):
         if self.group is not None:
@@ -376,17 +395,44 @@ class Trainer:
         times the rank's index in a parallel mode."""
         init = torch.Generator().manual_seed(self.seed)
         self.tagger = registry.build(self.arch_name, self.cfg, init).to(self.device)
+        self._shard()
         self.generator = torch.Generator(device=self.device).manual_seed(self._dropout_seed())
 
+    def _shard(self):
+        """Under a "model" axis, this rank's shards of the tagger."""
+        if self.tp_mesh is not None:
+            from ..parallel.tensor import tensor_parallel
+
+            tensor_parallel(self.tagger, self.tp_mesh)
+
     def _dropout_seed(self) -> int:
+        """The seed plus a stride per data coordinate: the model ranks of one
+        data coordinate compute one replicated forward and draw alike."""
         return self.seed + (0 if self.group is None else RANK_SEED_STRIDE * self.group.index)
 
     # -- parameters across the API --------------------------------------------
     def _load(self, params):
-        """Put a JAX-layout pytree into the tagger (None keeps what it holds)."""
-        if params is not None:
-            self.tagger.load_state_dict(type(self.tagger).from_jax_params(params))
-            self.tagger.to(self.device)
+        """Put a JAX-layout pytree into the tagger (None keeps what it holds;
+        a sharded tagger takes its shards)."""
+        if params is None:
+            return
+        sd = type(self.tagger).from_jax_params(params)
+        if self.tp_mesh is None:
+            self.tagger.load_state_dict(sd)
+        else:
+            from ..parallel.tensor import load_full_state_dict
+
+            load_full_state_dict(self.tagger, sd)
+        self.tagger.to(self.device)
+
+    def _jax_params(self) -> dict:
+        """The tagger's weights in the JAX layout; under a "model" axis
+        gathered from the shards (a collective: every model rank calls it)."""
+        if self.tp_mesh is None:
+            return self.tagger.to_jax_params()
+        from ..parallel.tensor import full_jax_params
+
+        return full_jax_params(self.tagger)
 
     def _setup(self, params=None):
         """(Re)start training: weights from `params` if given, else drawn anew
@@ -650,14 +696,17 @@ class Trainer:
 
                 self._set_lr(sched.step(monitored))
         finally:
-            if best_snapshot is not None and self.is_writer:
+            # a sharded tagger's weights are gathered by every model rank
+            if best_snapshot is not None and (self.is_writer or self.tp_mesh is not None):
                 last = self._snapshot()
                 self.tagger.load_state_dict(best_snapshot)
-                ckpt_lib.save(self.best_model_path, self.tagger.to_jax_params(), self.cfg,
-                              self.arch_name, extra=best_extra)
+                best_params = self._jax_params()
+                if self.is_writer:
+                    ckpt_lib.save(self.best_model_path, best_params, self.cfg, self.arch_name,
+                                  extra=best_extra)
                 self.tagger.load_state_dict(last)
         self._wait_for_writer()
-        self.params = self.tagger.to_jax_params()
+        self.params = self._jax_params()
         self.history = history
         return self.params, history
 

@@ -154,17 +154,17 @@ def test_grid_simplebilstm_trains_identical_configurations(tmp_path):
         _assert_history(gt.histories[g], st.history, ATOL)
 
 
-def test_grid_rejects_unsupported_architectures_and_a_mesh():
+def test_grid_rejects_unsupported_architectures_and_a_mesh(tmp_path):
     with pytest.raises(ValueError, match="grid training supports"):
         GridTrainer("Transformer", _cfg(), GRID, device="cpu")
     with pytest.raises(ValueError, match="grid training supports"):
         GridTrainer("biLSTMCRF", _cfg(), GRID, device="cpu")
-    # a mesh spreads the configurations over its ranks (tests/test_torch_parallel.py);
-    # the one mesh the port still refuses is one with a "model" axis
-    from multimodaltopicsegmentation_torch.parallel import mesh as PM
+    # a mesh spreads the configurations over its ranks (tests/test_torch_parallel.py,
+    # tests/test_torch_tensor_parallel.py); a "model" axis needs a process group
+    # and a rank count it divides
+    import torch_dist_workers as W
 
-    with pytest.raises(NotImplementedError, match="model_parallel > 1"):
-        PM.make_mesh(model_parallel=2)
+    W.check_model_axis_refusals(str(tmp_path))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             GridTrainer("BiLSTM", _cfg(), GRID)  # the default device is cuda

@@ -29,6 +29,7 @@ def test_port_modules_import_no_jax():
         "            'cli.predict', 'train.device_fit', 'train.grid', 'parallel.mesh',\n"
         "            'parallel.train_step', 'parallel.sequence', 'parallel.pipeline',\n"
         "            'parallel.expert', 'parallel.multihost', 'parallel.dryrun',\n"
+        "            'parallel.tensor',\n"
         "            'runtime.audio_native', 'utils.text_corpora', 'utils.logging_utils',\n"
         "            'utils.sklearn_pickle', 'tools.convert_reference_checkpoint',\n"
         "            'cli.compute_accuracy_metrics_sentence'):\n"

@@ -232,7 +232,7 @@ def test_shard_batch_pads_an_odd_batch_with_zero_length_documents():
     assert PM.shard_batch(None, shares[1]) is shares[1]  # a share stays as it is
 
 
-def test_backend_rule_and_param_spec():
+def test_backend_rule_and_param_spec(tmp_path):
     assert PM.backend_for(2, "cpu") == "gloo"
     cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
     assert PM.backend_for(cards + 1, "cuda") == "gloo"  # more ranks than cards
@@ -242,8 +242,7 @@ def test_backend_rule_and_param_spec():
     assert PM.param_spec("crf/transitions") == ()
     assert PM.param_spec("rnn/0/fwd/b_ih") == ("model",)
     assert PM.param_spec("cls/w") == ("model", None)
-    with pytest.raises(NotImplementedError, match="cuDNN"):
-        PM.make_mesh(model_parallel=2)
+    W.check_model_axis_refusals(str(tmp_path))
     with pytest.raises(RuntimeError, match="no process group"):
         PM.make_mesh()
 

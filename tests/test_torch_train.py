@@ -401,9 +401,10 @@ def test_fit_snapshot_survives_the_non_finite_tripwire(tmp_path, monkeypatch):
     assert len(hist) == 3 and tt.best_model_path.endswith("epoch=02-val_loss=0.5000-threshold=0.50.ckpt")
 
 
-def test_trainer_refuses_what_is_not_ported_and_a_missing_card():
+def test_trainer_refuses_what_is_not_ported_and_a_missing_card(tmp_path):
     """Without ranks the parallel modes fail the JAX Trainer's checks, with
-    its messages; tensor parallelism over "model" is refused by name."""
+    its messages; a "model" mesh axis needs a process group and a rank count
+    it divides."""
     from multimodaltopicsegmentation_torch.parallel import mesh as PM
 
     _, cfg = _cfgs()
@@ -422,8 +423,9 @@ def test_trainer_refuses_what_is_not_ported_and_a_missing_card():
             TLoop.Trainer(arch, c, device="cpu", **kw)
     # alone, SwitchBiLSTM('lstm') trains its dense form
     assert TLoop.Trainer("SwitchBiLSTM", switch, device="cpu").expert_mesh is None
-    with pytest.raises(NotImplementedError, match="model_parallel > 1"):
-        PM.make_mesh(model_parallel=2)
+    import torch_dist_workers as W
+
+    W.check_model_axis_refusals(str(tmp_path))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             TLoop.Trainer("BiLSTM", cfg)  # the default device is cuda

@@ -239,3 +239,110 @@ def card_case(rank, out_dir, cfg, params, x, lengths, tags):
         n: p.grad.cpu().numpy() for n, p in model.named_parameters()},
         loss=float(PM.all_reduce_sum(part.detach(), mesh)), backend=mesh.backend,
         device=str(mesh.device), staged=PM.stats["staged_bytes"]))
+
+
+def tp_case(mesh, arch, cfg, params, batch, steps, lr, extra, clip):
+    """Adam steps of a tagger sharded over the mesh's "model" axis on this
+    rank's data share -> the batch losses, the final params (the gathered
+    JAX layout), the first step's gradients (gathered, as the step left them,
+    clipped where `clip`), this rank's shards before the first step and the
+    shapes of the parameters' and their Adam state's tensors."""
+    from multimodaltopicsegmentation_torch.parallel import tensor as TP
+
+    model = TP.tensor_parallel(tagger(arch, cfg, params), mesh)
+    shards = {k: v.numpy().copy() for k, v in model.state_dict().items()}
+    opt = make_optimizer("Adam", model.parameters(), lr)
+    step = TS.make_sharded_train_step(model, opt, mesh, extra, clip)
+    share = batches_to_device([PM.shard_batch(mesh, batch)], "cpu")[0]
+    losses = [float(step(share, None))]
+    first = {k: v.numpy().copy() for k, v in TP.full_tensors(
+        model, {n: p.grad for n, p in model.named_parameters()}).items()}
+    losses += [float(step(share, None)) for _ in range(steps - 1)]
+    shapes = {n: (tuple(p.shape), [tuple(v.shape) for v in opt.state[p].values()
+                                   if isinstance(v, torch.Tensor)])
+              for n, p in model.named_parameters()}
+    return dict(losses=losses, params=TP.full_jax_params(model), first=first, shards=shards,
+                shapes=shapes)
+
+
+def tp_rank(rank, out_dir, plan):
+    """Tensor parallelism on gloo ranks, by `plan`: "steps" {key: (model
+    parallel, [(name, tp_case arguments)])}, "decode" {key: (model parallel,
+    arch, cfg, params, batch)}, "trainer" (model parallel, arch, cfg,
+    keywords, train, valid), "grid" (model parallel, cfg, grid, batches,
+    keywords), "refuse" (a mesh size and model_parallel that must not
+    make a mesh), "modes" (model parallel, arch, cfg: the Trainer's other
+    parallel modes beside a "model" axis, each refused) and "global_mesh"
+    (model parallel: `multihost.global_mesh`'s shape)."""
+    from multimodaltopicsegmentation_torch.train.grid import GridTrainer
+    from multimodaltopicsegmentation_torch.train.loop import Trainer
+
+    meshes = {}
+
+    def mesh_of(m):
+        if m not in meshes:
+            meshes[m] = PM.make_mesh(model_parallel=m)
+        return meshes[m]
+
+    res = {"steps": {}, "decode": {}}
+    for key, (m, cases) in plan.get("steps", {}).items():
+        mesh = mesh_of(m)
+        res["steps"][key] = dict(position=(mesh.index, mesh.model_index), shape=mesh.shape,
+                                 cases={name: tp_case(mesh, *case) for name, case in cases})
+    for key, (m, arch, cfg, params, batch) in plan.get("decode", {}).items():
+        decode = TS.make_sharded_decode(tagger(arch, cfg, params), mesh_of(m), 0.5)
+        scores, tags = decode(batch)
+        res["decode"][key] = (scores.numpy(), tags.numpy())
+    if "trainer" in plan:
+        m, arch, cfg, kw, train, valid = plan["trainer"]
+        trainer = Trainer(arch, TaggerConfig(**cfg), check_dir=os.path.join(out_dir, "tp_ckpt"),
+                          device="cpu", mesh=mesh_of(m), **kw)
+        params, history = trainer.fit(train, valid)
+        test = trainer.test(params, valid)[0]
+        res["trainer"] = dict(params=params, history=history, path=trainer.best_model_path,
+                              writer=trainer.is_writer, test=test,
+                              seed=trainer.generator.initial_seed())
+    if "grid" in plan:
+        m, cfg, grid, batches, kw = plan["grid"]
+        gt = GridTrainer("BiLSTM", TaggerConfig(**cfg), grid, mesh=mesh_of(m), device="cpu", **kw)
+        finals, histories = gt.fit(batches, batches)
+        res["grid"] = (finals, histories, list(gt.best_model_paths),
+                       [gt.save_final(g) for g in range(len(grid))])
+    if "modes" in plan:
+        m, arch, cfg = plan["modes"]
+        res["modes"] = []
+        for kw in (dict(pipeline_stages=2), dict(sequence_shards=2), dict(expert_parallel=True)):
+            try:
+                Trainer(arch, TaggerConfig(**cfg), device="cpu", mesh=mesh_of(m), **kw)
+                res["modes"].append(None)
+            except ValueError as e:
+                res["modes"].append(str(e))
+    if "global_mesh" in plan:
+        from multimodaltopicsegmentation_torch.parallel import multihost
+
+        res["global_mesh"] = multihost.global_mesh(plan["global_mesh"]).shape
+    if "refuse" in plan:
+        n, m = plan["refuse"]
+        try:
+            PM.make_mesh(n, model_parallel=m)
+            res["refuse"] = None
+        except ValueError as e:
+            res["refuse"] = str(e)
+    save(out_dir, rank, res)
+
+
+def check_model_axis_refusals(store_dir):
+    """make_mesh(model_parallel=2) in this process: without a process group
+    it raises "no process group"; in a group of one rank, which 2 does not
+    divide, ValueError."""
+    import pytest
+
+    with pytest.raises(RuntimeError, match="no process group"):
+        PM.make_mesh(model_parallel=2)
+    torch.distributed.init_process_group(
+        "gloo", init_method="file://" + os.path.join(store_dir, "store"), world_size=1, rank=0)
+    try:
+        with pytest.raises(ValueError, match="does not divide"):
+            PM.make_mesh(model_parallel=2)
+    finally:
+        torch.distributed.destroy_process_group()
