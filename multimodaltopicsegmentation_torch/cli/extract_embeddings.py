@@ -248,8 +248,7 @@ def main(args):
 
         if verbose:
             print(f"Encoding {len(bounds)} units of {audio_paths[index]}")
-        with profiling.stage("encode_document"):
-            unit_embs = encoder.encode_document(audio, bounds)
+        unit_embs = encoder.encode_document(audio, bounds)
         if len(unit_embs) != len(segmentation):
             raise RuntimeError("Something went wrong!")
         write_document(encoder, args.out_directory, filenames[index], unit_embs, device)

@@ -53,6 +53,7 @@ from ..core.torch_setup import resolve_device
 from ..models import registry
 from ..train import checkpoints as ckpt_lib
 from ..train.data import load_dataset_for_inference, pad_batch
+from ..utils import profiling
 from ..utils.audio import load_audio, save_wav
 
 
@@ -190,7 +191,7 @@ class Predictor(BasePredictor):
                 "The name of this experiment has already been used: please "
                 f"change experiment name or delete {experiment_name}"
             )
-        mesh = None
+        mesh = sharded = None
         if mesh_lib.world_size() > 1 and not self.double:
             from ..parallel.train_step import make_sharded_decode
 
@@ -205,6 +206,24 @@ class Predictor(BasePredictor):
         if writer:
             os.makedirs(experiment_name)
 
+        with profiling.span("predict") as predict_span:
+            with profiling.span("predict.load"):
+                docs, docs2 = self._load(embedding_folder, embedding_folder2, verbose)
+            predict_span.add("documents", len(docs))
+            predict_span.add("units", sum(len(d[0]) for d in docs))
+            results = self._tag(docs, docs2, batch_size, mesh, sharded)
+            if not writer:
+                mesh_lib.barrier()  # rank 0 writes the outputs
+                return results
+            with profiling.span("predict.write"):
+                self._write(experiment_name, [d[2] for d in docs], results, write_audio_segments,
+                            audio_directory, add_overlap)
+        mesh_lib.barrier()
+        return results
+
+    def _load(self, embedding_folder, embedding_folder2, verbose):
+        """-> the documents (embeddings, dummy labels, file name) of each
+        modality (the second None for a single-input tagger)."""
         embeddings, file_names = load_dataset_for_inference_with_names(embedding_folder)
         if verbose:
             print(f"Segmenting the following files:\n{file_names}")
@@ -212,36 +231,44 @@ class Predictor(BasePredictor):
         if self.double:
             docs2 = self._second_modality(embedding_folder, embedding_folder2, embeddings,
                                           file_names)
+        return [(e, [0] * len(e), n) for e, n in zip(embeddings, file_names)], docs2
 
+    def _tag(self, docs, docs2, batch_size, mesh, sharded):
+        """-> each document's tags, decoded in chunks of `batch_size`
+        documents (sharded over the mesh's ranks where there is one)."""
         results = []
-        docs = [(e, [0] * len(e), n) for e, n in zip(embeddings, file_names)]
         for i in range(0, len(docs), batch_size):
             chunk = docs[i : i + batch_size]
-            # a sharded chunk is padded to a multiple of the ranks
-            pad_to = batch_size if mesh is not None and len(chunk) < batch_size else None
-            batch = pad_batch(chunk, crf=False, bucket=True, pad_batch_to=pad_to)
+            with profiling.span("predict.pad"):
+                # a sharded chunk is padded to a multiple of the ranks
+                pad_to = batch_size if mesh is not None and len(chunk) < batch_size else None
+                batch = pad_batch(chunk, crf=False, bucket=True, pad_batch_to=pad_to)
+                # the same pad_batch arguments: both modalities pad to one length
+                x2 = pad_batch(docs2[i : i + batch_size], crf=False,
+                               bucket=True)["src_tokens"] if self.double else None
             if mesh is not None:
-                _, tags = sharded(batch)
+                with profiling.span("predict.decode"):
+                    _, tags = sharded(batch)
             else:
-                x, lengths = (torch.from_numpy(batch[k]).to(self.device)
-                              for k in ("src_tokens", "src_lengths"))
-                with torch.inference_mode():
+                arrays = [batch["src_tokens"], batch["src_lengths"]] + ([x2] if self.double else [])
+                with profiling.span("predict.to_device",
+                                    bytes_to_device=sum(a.nbytes for a in arrays)):
+                    x, lengths, *rest = (torch.from_numpy(a).to(self.device) for a in arrays)
+                with torch.inference_mode(), profiling.span("predict.decode"):
                     if self.double:
-                        # the same pad_batch arguments: both modalities pad to one length
-                        x2 = pad_batch(docs2[i : i + batch_size], crf=False,
-                                       bucket=True)["src_tokens"]
-                        _, tags = self.arch.decode(x, lengths, self.th,
-                                                   x2=torch.from_numpy(x2).to(self.device))
+                        _, tags = self.arch.decode(x, lengths, self.th, x2=rest[0])
                     else:
                         _, tags = self.arch.decode(x, lengths, self.th)
-            tags = tags.cpu().numpy()
+            with profiling.span("predict.to_host"):
+                tags = tags.cpu().numpy()
             for j in range(len(chunk)):
                 L = int(batch["src_lengths"][j])
                 results.append(tags[j][:L].astype(int).tolist())
+        return results
 
-        if not writer:
-            mesh_lib.barrier()  # rank 0 writes the outputs
-            return results
+    def _write(self, experiment_name, file_names, results, write_audio_segments,
+               audio_directory, add_overlap):
+        """The segment wavs (+- `add_overlap` s) and results.pkl."""
         if write_audio_segments:
             if audio_directory is None:
                 raise ValueError("If segmenting the input audio, provide the audio directory")
@@ -268,8 +295,6 @@ class Predictor(BasePredictor):
                     )
         with open(os.path.join(experiment_name, "results.pkl"), "wb") as f:
             pickle.dump(dict(zip(file_names, results)), f)
-        mesh_lib.barrier()
-        return results
 
     @staticmethod
     def _second_modality(embedding_folder, embedding_folder2, embeddings, file_names):
@@ -377,6 +402,15 @@ def cli_main(argv=None):
 
 
 def _run(args):
+    """The run under MTS_TRACE_DIR's device trace; MTS_PROFILE=1 prints the
+    spans' report at its end (utils/profiling.py)."""
+    with profiling.device_trace():
+        results = _predict(args)
+    profiling.maybe_print_report()
+    return results
+
+
+def _predict(args):
     from ..parallel.mesh import barrier, global_rank
 
     if args.logistic_regression_baseline:

@@ -429,7 +429,7 @@ def main(args):
                     gradient_clipping=args.gradient_clipping,
                     tag=f"f{index}",  # folds may share check_dir; keep their checkpoints apart
                     mesh=mesh, device=device)
-                with profiling.stage("fit_grid"):
+                with profiling.span("fit_grid"):
                     gt.fit(train_loader, None if args.no_validation else valid_loader)
                 for gi, pt in enumerate(hyperparameters):
                     best_path = gt.best_model_paths[gi]
@@ -487,7 +487,7 @@ def main(args):
                 if args.threshold:
                     best_val_loss = args.threshold
             else:
-                with profiling.stage("fit"), profiling.device_trace():
+                with profiling.device_trace():
                     final_params, _ = trainer.fit(train_loader,
                                                   None if args.no_validation else valid_loader)
                 parsed_th, parsed_loss = ckpt_lib.parse_checkpoint_name(trainer.best_model_path)
@@ -506,7 +506,7 @@ def main(args):
             params, _, _, _ = ckpt_lib.load(trainer.best_model_path)
             # the reference always passes the (file-name or explicit) threshold
             trainer.threshold = threshold
-            with profiling.stage("test"):
+            with profiling.span("test"):
                 res, per_doc, scores = trainer.test(params, test_loader)
             fold_results.append(res)
 

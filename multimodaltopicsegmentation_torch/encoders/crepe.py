@@ -25,6 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..core.torch_setup import resolve_device
+from .engine_util import traced_encode
 
 FRAME = 1024
 HOP = 160  # 10 ms at 16 kHz
@@ -129,6 +130,7 @@ class CrepeEncoder:
         self.device = resolve_device(device)
         self.model.to(self.device).eval()
 
+    @traced_encode
     @torch.inference_mode()
     def encode_document(self, audio, bounds, chunk=512):
         outs = []

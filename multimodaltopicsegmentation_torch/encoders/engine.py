@@ -22,8 +22,9 @@ import numpy as np
 import torch
 
 from ..core.torch_setup import resolve_device
+from ..utils import profiling
 from . import wav2vec2 as W
-from .engine_util import bucket_rows, pad_units
+from .engine_util import bucket_rows, pad_units, traced_encode
 
 SR = 16000
 
@@ -36,6 +37,7 @@ class ProsodicEncoder:
     def __init__(self, device="cuda"):
         self.device = resolve_device(device)
 
+    @traced_encode
     @torch.inference_mode()
     def encode_document(self, audio, bounds, chunk=256):
         from ..dsp.prosody import prosodic_features
@@ -63,6 +65,7 @@ class MFCCEncoder:
     def __init__(self, device="cuda"):
         self.device = resolve_device(device)
 
+    @traced_encode
     @torch.inference_mode()
     def encode_document(self, audio, bounds, chunk=256):
         from ..dsp.prosody import mfcc_features
@@ -99,22 +102,31 @@ class Wav2Vec2Encoder:
             state, self.cfg = W.load_pretrained(weights or name_or_path)
         self.model = W.build_model(self.cfg, state, self.device)
 
+    @traced_encode
     def encode_document(self, audio, bounds, chunk=256) -> List[np.ndarray]:
         """-> one [frames, hidden] array per unit of `bounds`."""
-        units, lens = pad_units(audio, bounds, bucket=True)
+        with profiling.span("encode_document.pack"):
+            units, lens = pad_units(audio, bounds, bucket=True)
         outs: List[np.ndarray] = []
         for i in range(0, len(bounds), chunk):
             nb = min(chunk, len(bounds) - i)
-            # the ragged tail chunk is bucketed to a multiple of 32 rows;
-            # the zero-length padded rows are dropped below
-            u, l = bucket_rows(units[i : i + chunk], lens[i : i + chunk], 32, cap=chunk)
+            with profiling.span("encode_document.pack"):
+                # the ragged tail chunk is bucketed to a multiple of 32 rows;
+                # the zero-length padded rows are dropped below
+                u, l = bucket_rows(units[i : i + chunk], lens[i : i + chunk], 32, cap=chunk)
             with torch.inference_mode():
-                frames = self.model(
-                    torch.from_numpy(u).to(self.device), torch.from_numpy(l).to(self.device)
-                )[:nb].cpu().numpy()
-            for row, n in zip(frames, lens[i : i + chunk]):
-                t = W.feature_extractor_output_length(self.cfg, int(n))
-                outs.append(row[: max(t, 1)])
+                with profiling.span("encode_document.to_device",
+                                    bytes_to_device=u.nbytes + l.nbytes):
+                    u, l = torch.from_numpy(u).to(self.device), torch.from_numpy(l).to(self.device)
+                with profiling.span("encode_document.forward"):
+                    frames = self.model(u, l)
+                with profiling.span("encode_document.to_host") as to_host:
+                    frames = frames[:nb].cpu().numpy()
+                    to_host.add("bytes_to_host", frames.nbytes)
+            with profiling.span("encode_document.slice"):
+                for row, n in zip(frames, lens[i : i + chunk]):
+                    t = W.feature_extractor_output_length(self.cfg, int(n))
+                    outs.append(row[: max(t, 1)])
         return outs
 
 

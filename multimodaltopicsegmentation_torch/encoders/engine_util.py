@@ -1,10 +1,26 @@
 """Unit-batching helpers for encoders (a copy of the JAX package's
-encoders/engine_util.py, which the port does not import)."""
+encoders/engine_util.py, which the port does not import), and the span
+every encoder's `encode_document` opens."""
 from __future__ import annotations
 
+import functools
 from typing import Sequence, Tuple
 
 import numpy as np
+
+from ..utils import profiling
+
+
+def traced_encode(encode_document):
+    """Runs an encoder's `encode_document(audio, bounds, ...)` inside the
+    `encode_document` span, counting its units."""
+
+    @functools.wraps(encode_document)
+    def traced(self, audio, bounds, *args, **kwargs):
+        with profiling.span("encode_document", units=len(bounds)):
+            return encode_document(self, audio, bounds, *args, **kwargs)
+
+    return traced
 
 
 def bucket_samples(S: int, sr: int = 16000) -> int:

@@ -27,6 +27,7 @@ from torch import nn
 from ..core.torch_setup import resolve_device
 from ..dsp.spectral import frame_signal, hann_window, mel_filterbank
 from ..utils.audio import resample
+from .engine_util import traced_encode
 
 OPENL3_SR = 48000
 WINDOW_S = 1.0
@@ -141,6 +142,7 @@ class OpenL3Encoder:
             )
         self.model.to(self.device).eval()
 
+    @traced_encode
     @torch.inference_mode()
     def encode_document(self, audio, bounds, chunk=64):
         """audio is 16 kHz; OpenL3 runs at 48 kHz on 1 s windows every 0.1 s."""

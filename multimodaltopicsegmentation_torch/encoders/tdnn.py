@@ -29,7 +29,7 @@ from torch import nn
 from ..core.torch_setup import resolve_device
 from ..dsp.spectral import (frame_signal, hann_window, mel_filterbank, melspectrogram,
                             power_to_db, reflect_index)
-from .engine_util import bucket_rows, pad_units
+from .engine_util import bucket_rows, pad_units, traced_encode
 
 SR = 16000
 ECAPA_DILATIONS = (2, 3, 4)
@@ -353,6 +353,7 @@ class _PooledEncoder:
         self.model = model.to(self.device).eval()
         self.n_mels, self.chunk = n_mels, chunk
 
+    @traced_encode
     @torch.inference_mode()
     def encode_document(self, audio, bounds, chunk=None):
         chunk = chunk or self.chunk
@@ -412,6 +413,7 @@ class RandomProjectionEncoder:
         self.device = resolve_device(device)
         self._proj = np.random.default_rng(0).standard_normal((128, dim)).astype(np.float32) * 0.1
 
+    @traced_encode
     @torch.inference_mode()
     def encode_document(self, audio, bounds, chunk=256):
         units, _ = pad_units(audio, bounds, bucket=True)

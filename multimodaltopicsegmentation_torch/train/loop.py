@@ -58,6 +58,7 @@ from ..eval import metrics as M
 from ..models import registry
 from ..models.base import TaggerConfig
 from ..ops import rnn as rnn_lib
+from ..utils import profiling
 from . import checkpoints as ckpt_lib
 
 
@@ -218,6 +219,11 @@ def batches_to_device(batches: List[dict], device) -> List[dict]:
             db["src_lengths"], torch.as_tensor(np.asarray(batch["src_lengths"])))
         out.append(db)
     return out
+
+
+def device_nbytes(batches: List[dict]) -> int:
+    """Bytes of the arrays `batches_to_device` copied into `batches`."""
+    return sum(b[key].nbytes for b in batches for key in _DEVICE_KEYS if key in b)
 
 
 def tagger_loss(tagger, extra_kind: str = ""):
@@ -542,9 +548,12 @@ class Trainer:
         window = int(os.environ.get("MTS_DEVICE_EPOCH_WINDOW", "10"))
         nb, nv = len(train_batches), len(valid_batches or [])
         weights = [b.get("n_real", len(b["src_lengths"])) for b in valid_batches or []]
-        self._setup()
-        train_batches = batches_to_device(train_batches, self.device)
-        valid_batches = batches_to_device(valid_batches, self.device) if nv else []
+        with profiling.span("fit.build"):
+            self._setup()
+        with profiling.span("fit.to_device") as to_device:
+            train_batches = batches_to_device(train_batches, self.device)
+            valid_batches = batches_to_device(valid_batches, self.device) if nv else []
+            to_device.add("bytes_to_device", device_nbytes(train_batches + valid_batches))
         fit_window = device_fit.make_fit_window(
             self, window=window, val_weights=weights, monitor_train=self.monitor == "training_loss",
             patience=self.patience, no_early_stop=self.no_early_stop)
@@ -554,8 +563,12 @@ class Trainer:
         try:
             e0, stopped = 0, False
             while e0 < self.max_epochs and not stopped:
-                packed, marks = fit_window(carry, e0, self.max_epochs, train_batches, valid_batches)
-                tr, val, stops, ran = device_fit.unpack_window(packed.cpu().numpy(), window, nb, nv)
+                with profiling.span("fit.window") as fit_window_span:
+                    packed, marks = fit_window(carry, e0, self.max_epochs, train_batches,
+                                               valid_batches)
+                    tr, val, stops, ran = device_fit.unpack_window(packed.cpu().numpy(), window,
+                                                                   nb, nv)
+                    fit_window_span.add("epochs", int(np.sum(ran)))
                 for i in range(window):
                     if not ran[i]:
                         break
@@ -576,26 +589,29 @@ class Trainer:
                         break
                 e0 += window
         finally:
-            best_epoch, best_fname, best = torch.stack([
-                carry["best_epoch"].double(), carry["best_fname"], carry["best"]]).tolist()
-            best_epoch = int(best_epoch)
-            if anomaly_epoch is None or best_epoch < anomaly_epoch:
-                self.best_model_path = os.path.join(
-                    self.check_dir, ckpt_lib.checkpoint_name(best_epoch, best_fname, 0.5))
-                last = self._snapshot()
-                with torch.no_grad():
-                    for p, b in zip(self.tagger.parameters(), carry["best_params"]):
-                        p.copy_(b)
-                ckpt_lib.save(self.best_model_path, self.tagger.to_jax_params(), self.cfg,
-                              self.arch_name, extra={"epoch": best_epoch, "monitored": best})
-                self.tagger.load_state_dict(last)
+            with profiling.span("fit.checkpoint") as checkpoint:
+                best_epoch, best_fname, best = torch.stack([
+                    carry["best_epoch"].double(), carry["best_fname"], carry["best"]]).tolist()
+                best_epoch = int(best_epoch)
+                if anomaly_epoch is None or best_epoch < anomaly_epoch:
+                    self.best_model_path = os.path.join(
+                        self.check_dir, ckpt_lib.checkpoint_name(best_epoch, best_fname, 0.5))
+                    last = self._snapshot()
+                    with torch.no_grad():
+                        for p, b in zip(self.tagger.parameters(), carry["best_params"]):
+                            p.copy_(b)
+                    ckpt_lib.save(self.best_model_path, self.tagger.to_jax_params(), self.cfg,
+                                  self.arch_name, extra={"epoch": best_epoch, "monitored": best})
+                    checkpoint.add("bytes_written", os.path.getsize(self.best_model_path))
+                    self.tagger.load_state_dict(last)
         # where epochs after the stop were masked, the generator and the step
         # counts are set back to the end of the last epoch that ran
         if mark is not None:
             self.generator.set_state(mark[0])
             self.opt.rewind(mark[1])
         self.opt.set_lr(float(carry["lr"]))
-        self.params = self.tagger.to_jax_params()
+        with profiling.span("fit.gather"):
+            self.params = self.tagger.to_jax_params()
         self.history = history
         return self.params, history
 
@@ -635,14 +651,29 @@ class Trainer:
     def fit(self, train_batches: List[dict], valid_batches: Optional[List[dict]] = None):
         """-> (final params, history). The top-1 snapshot is written to
         `best_model_path` when the loop ends, however it ends (by rank 0 in a
-        parallel mode; the other ranks wait for it when the loop ends well)."""
-        if self.device_epochs:
-            return self._fit_device_epochs(train_batches, valid_batches)
-        self._setup()
+        parallel mode; the other ranks wait for it when the loop ends well).
+        The `fit` span holds `fit.build`, `fit.to_device`, one `fit.epoch` an
+        epoch (or one `fit.window` a device window), `fit.checkpoint` and
+        `fit.gather` (utils/profiling.py)."""
+        with profiling.span("fit") as fit_span:
+            if self.device_epochs:
+                params, history = self._fit_device_epochs(train_batches, valid_batches)
+            else:
+                params, history = self._fit_host(train_batches, valid_batches)
+            fit_span.add("epochs", len(history))
+        return params, history
+
+    def _fit_host(self, train_batches, valid_batches):
+        """fit() with the epoch loop on the host: one pull of the losses an
+        epoch."""
+        with profiling.span("fit.build"):
+            self._setup()
         weights = [b.get("n_global", b.get("n_real", len(b["src_lengths"])))
                    for b in valid_batches or []]
-        train_batches = self._to_device(train_batches)
-        valid_batches = self._to_device(valid_batches) if valid_batches else None
+        with profiling.span("fit.to_device") as to_device:
+            train_batches = self._to_device(train_batches)
+            valid_batches = self._to_device(valid_batches) if valid_batches else None
+            to_device.add("bytes_to_device", device_nbytes(train_batches + (valid_batches or [])))
 
         sched = PlateauScheduler(self.lr)
         best = float("inf")
@@ -654,59 +685,64 @@ class Trainer:
         history = []
         try:
             for epoch in range(self.max_epochs):
-                train_losses = [self._train_step(batch) for batch in train_batches]
-                val_device = [self._eval_loss(batch) for batch in valid_batches or []]
-                # one transfer per epoch for the training losses, one for the
-                # validation losses; an empty fold keeps mean([]) -> nan
-                batch_losses = torch.stack(train_losses).tolist() if train_losses else []
-                if self.detect_anomaly and not all(np.isfinite(batch_losses)):
-                    bad = int(np.flatnonzero(~np.isfinite(batch_losses))[0])
-                    raise FloatingPointError(
-                        f"detect_anomaly: non-finite training loss {batch_losses[bad]} at epoch "
-                        f"{epoch}, batch {bad} (arch={self.arch_name}, lr={self.lr}; pass "
-                        f"detect_anomaly=False to train through it)")
-                train_loss = float(np.mean(batch_losses))
-                val_loss = None
-                if val_device:
-                    val_loss = float(np.average(torch.stack(val_device).cpu().numpy(),
-                                                weights=weights))
+                with profiling.span("fit.epoch"):
+                    train_losses = [self._train_step(batch) for batch in train_batches]
+                    val_device = [self._eval_loss(batch) for batch in valid_batches or []]
+                    # one transfer per epoch for the training losses, one for the
+                    # validation losses; an empty fold keeps mean([]) -> nan
+                    batch_losses = torch.stack(train_losses).tolist() if train_losses else []
+                    if self.detect_anomaly and not all(np.isfinite(batch_losses)):
+                        bad = int(np.flatnonzero(~np.isfinite(batch_losses))[0])
+                        raise FloatingPointError(
+                            f"detect_anomaly: non-finite training loss {batch_losses[bad]} at "
+                            f"epoch {epoch}, batch {bad} (arch={self.arch_name}, lr={self.lr}; "
+                            f"pass detect_anomaly=False to train through it)")
+                    train_loss = float(np.mean(batch_losses))
+                    val_loss = None
+                    if val_device:
+                        val_loss = float(np.average(torch.stack(val_device).cpu().numpy(),
+                                                    weights=weights))
 
-                monitored = train_loss if self.monitor == "training_loss" else val_loss
-                if monitored is None:
-                    monitored = train_loss
-                history.append({"epoch": epoch, "training_loss": train_loss, "val_loss": val_loss})
+                    monitored = train_loss if self.monitor == "training_loss" else val_loss
+                    if monitored is None:
+                        monitored = train_loss
+                    history.append({"epoch": epoch, "training_loss": train_loss,
+                                    "val_loss": val_loss})
 
-                # top-1 snapshot on improvement (NaN counts as none, but the
-                # first epoch always snapshots so that a best path exists);
-                # it stays on the device until the loop ends
-                if not np.isfinite(monitored):
-                    monitored = float("inf")
-                if monitored < best or best_snapshot is None:
-                    best = monitored
-                    bad_epochs = 0
-                    best_snapshot = self._snapshot()
-                    fname_val = monitored if np.isfinite(monitored) else 9999.9999
-                    self.best_model_path = os.path.join(
-                        self.check_dir, ckpt_lib.checkpoint_name(epoch, fname_val, 0.5))
-                    best_extra = {"epoch": epoch, "monitored": monitored}
-                else:
-                    bad_epochs += 1
-                    if not self.no_early_stop and bad_epochs >= self.patience:
-                        break
+                    # top-1 snapshot on improvement (NaN counts as none, but the
+                    # first epoch always snapshots so that a best path exists);
+                    # it stays on the device until the loop ends
+                    if not np.isfinite(monitored):
+                        monitored = float("inf")
+                    if monitored < best or best_snapshot is None:
+                        best = monitored
+                        bad_epochs = 0
+                        best_snapshot = self._snapshot()
+                        fname_val = monitored if np.isfinite(monitored) else 9999.9999
+                        self.best_model_path = os.path.join(
+                            self.check_dir, ckpt_lib.checkpoint_name(epoch, fname_val, 0.5))
+                        best_extra = {"epoch": epoch, "monitored": monitored}
+                    else:
+                        bad_epochs += 1
+                        if not self.no_early_stop and bad_epochs >= self.patience:
+                            break
 
-                self._set_lr(sched.step(monitored))
+                    self._set_lr(sched.step(monitored))
         finally:
             # a sharded tagger's weights are gathered by every model rank
-            if best_snapshot is not None and (self.is_writer or self.tp_mesh is not None):
-                last = self._snapshot()
-                self.tagger.load_state_dict(best_snapshot)
-                best_params = self._jax_params()
-                if self.is_writer:
-                    ckpt_lib.save(self.best_model_path, best_params, self.cfg, self.arch_name,
-                                  extra=best_extra)
-                self.tagger.load_state_dict(last)
+            with profiling.span("fit.checkpoint") as checkpoint:
+                if best_snapshot is not None and (self.is_writer or self.tp_mesh is not None):
+                    last = self._snapshot()
+                    self.tagger.load_state_dict(best_snapshot)
+                    best_params = self._jax_params()
+                    if self.is_writer:
+                        ckpt_lib.save(self.best_model_path, best_params, self.cfg,
+                                      self.arch_name, extra=best_extra)
+                        checkpoint.add("bytes_written", os.path.getsize(self.best_model_path))
+                    self.tagger.load_state_dict(last)
         self._wait_for_writer()
-        self.params = self._jax_params()
+        with profiling.span("fit.gather"):
+            self.params = self._jax_params()
         self.history = history
         return self.params, history
 
