@@ -6,8 +6,9 @@ the device in chunks:
 - unit-level DSP encoders (prosodic 167-d, mfcc 200-d) run dsp/prosody.py;
   prosodic chunks carry one unit of left context so that the pitch-jump
   chain survives chunking;
-- wav2vec2 runs the transformer over 256-row chunks and slices each unit's
-  valid frames;
+- wav2vec2 runs the transformer over 256-row chunks, one chunk ahead of the
+  copy of its frames to the host (through two pinned staging slots), and
+  slices each unit's valid frames;
 - x-vector, ECAPA, OpenL3 and CREPE live in tdnn.py, openl3.py, crepe.py.
 
 Encoders without weights raise unless MTS_RANDOM_ENCODER_WEIGHTS=1
@@ -16,7 +17,7 @@ Encoders without weights raise unless MTS_RANDOM_ENCODER_WEIGHTS=1
 from __future__ import annotations
 
 import os
-from typing import List
+from typing import List, NamedTuple
 
 import numpy as np
 import torch
@@ -24,7 +25,7 @@ import torch
 from ..core.torch_setup import resolve_device
 from ..utils import profiling
 from . import wav2vec2 as W
-from .engine_util import bucket_rows, pad_units, traced_encode
+from .engine_util import bucket_rows, bucket_samples, pad_units, traced_encode
 
 SR = 16000
 
@@ -85,6 +86,7 @@ class Wav2Vec2Encoder:
     name = "wav2vec"
     dim = 768
     frame_level = True
+    _slots = None  # _StagingSlots, made at the first encode_document
 
     def __init__(self, name_or_path: str = "facebook/wav2vec2-base-960h", device="cuda"):
         self.device = resolve_device(device)
@@ -104,30 +106,116 @@ class Wav2Vec2Encoder:
 
     @traced_encode
     def encode_document(self, audio, bounds, chunk=256) -> List[np.ndarray]:
-        """-> one [frames, hidden] array per unit of `bounds`."""
+        """-> one [frames, hidden] array per unit of `bounds`.
+
+        The units are cut to one document-wide padded length S (as
+        `pad_units(..., bucket=True)` decides it) and run through the
+        transformer in chunks of `chunk` rows, one chunk ahead: chunk i+1's
+        forward is queued before chunk i's frames are drained to the host.
+        Each chunk is packed into a staging slot (pinned on a CUDA device),
+        copied in and its frames copied back without blocking, and an event
+        after the copy back says when the slot is free again."""
         with profiling.span("encode_document.pack"):
-            units, lens = pad_units(audio, bounds, bucket=True)
+            lens = np.asarray([max(e - s, 1) for s, e in bounds])
+            S = int(lens.max())
+            if len(np.unique(lens)) > 1:
+                S = bucket_samples(S)
+            lens = np.minimum(lens, S).astype(np.int32)
+            T = W.feature_extractor_output_length(self.cfg, S)
+            out = np.empty((len(bounds), T, self.cfg.hidden_size), np.float32)
+        cuda = self.device.type == "cuda"
+        if self._slots is None:
+            self._slots = _StagingSlots(pinned=cuda)
+        slots = self._slots.views(chunk, S, T, self.cfg.hidden_size)
         outs: List[np.ndarray] = []
-        for i in range(0, len(bounds), chunk):
+        pending = None  # (slot, first unit, rows, event) of the chunk not yet drained
+        for c, i in enumerate(range(0, len(bounds), chunk)):
+            slot = slots[c % 2]  # free: its last chunk (c - 2) was drained
             nb = min(chunk, len(bounds) - i)
+            # the ragged tail chunk is bucketed to a multiple of 32 rows;
+            # the zero-length padded rows are dropped below
+            nbb = min(chunk, 32 * -(-nb // 32))
             with profiling.span("encode_document.pack"):
-                # the ragged tail chunk is bucketed to a multiple of 32 rows;
-                # the zero-length padded rows are dropped below
-                u, l = bucket_rows(units[i : i + chunk], lens[i : i + chunk], 32, cap=chunk)
+                _pack(slot, audio, bounds[i : i + nb], lens[i : i + nb], nbb)
             with torch.inference_mode():
+                u, l = slot.audio[:nbb], slot.lens[:nbb]
                 with profiling.span("encode_document.to_device",
                                     bytes_to_device=u.nbytes + l.nbytes):
-                    u, l = torch.from_numpy(u).to(self.device), torch.from_numpy(l).to(self.device)
-                with profiling.span("encode_document.forward"):
-                    frames = self.model(u, l)
-                with profiling.span("encode_document.to_host") as to_host:
-                    frames = frames[:nb].cpu().numpy()
-                    to_host.add("bytes_to_host", frames.nbytes)
-            with profiling.span("encode_document.slice"):
-                for row, n in zip(frames, lens[i : i + chunk]):
-                    t = W.feature_extractor_output_length(self.cfg, int(n))
-                    outs.append(row[: max(t, 1)])
+                    u = u.to(self.device, non_blocking=True)
+                    l = l.to(self.device, non_blocking=True)
+                with profiling.span("encode_document.forward", ahead=int(pending is not None)):
+                    slot.frames[:nb].copy_(self.model(u, l)[:nb], non_blocking=True)
+                    done = None
+                    if cuda:
+                        done = torch.cuda.Event()
+                        done.record(torch.cuda.current_stream(self.device))
+            if pending is not None:
+                self._drain(*pending, lens, out, outs)
+            pending = (slot, i, nb, done)
+        self._drain(*pending, lens, out, outs)
         return outs
+
+    def _drain(self, slot, i, nb, done, lens, out, outs):
+        """Waits for a chunk's frames in its slot, copies them into the
+        document's array and appends each unit's valid frames to `outs`."""
+        with profiling.span("encode_document.to_host") as to_host:
+            if done is not None:
+                done.synchronize()
+            out[i : i + nb] = slot.frames[:nb].numpy()
+            to_host.add("bytes_to_host", out[i : i + nb].nbytes)
+        with profiling.span("encode_document.slice"):
+            for row, n in zip(out[i : i + nb], lens[i : i + nb]):
+                t = W.feature_extractor_output_length(self.cfg, int(n))
+                outs.append(row[: max(t, 1)])
+
+
+class _Slot(NamedTuple):
+    """One chunk's staging: audio [chunk, S] float32, lens [chunk] int32,
+    frames [chunk, T, hidden] float32."""
+
+    audio: torch.Tensor
+    lens: torch.Tensor
+    frames: torch.Tensor
+
+
+class _StagingSlots:
+    """The two host slots of `Wav2Vec2Encoder.encode_document`'s chunk loop,
+    page-locked on a CUDA device (so that copies to and from the card do not
+    block the host) and ordinary memory on the CPU. A slot's buffers are flat
+    and grow only when a larger (chunk, S, T) arrives; smaller shapes are
+    views of their first elements, so the memory held is two chunks of the
+    largest shape seen, whatever a document's length."""
+
+    DTYPES = (torch.float32, torch.int32, torch.float32)
+
+    def __init__(self, pinned: bool):
+        self.pinned = pinned
+        self.sizes = (0, 0, 0)  # elements of each slot's audio, lens, frames
+        self.flat = []
+
+    def views(self, chunk, S, T, hidden) -> List[_Slot]:
+        need = (chunk * S, chunk, chunk * T * hidden)
+        if any(n > m for n, m in zip(need, self.sizes)):
+            self.sizes = tuple(map(max, need, self.sizes))
+            self.flat = [[torch.empty(n, dtype=d, pin_memory=self.pinned)
+                          for n, d in zip(self.sizes, self.DTYPES)] for _ in range(2)]
+        return [_Slot(a[: need[0]].view(chunk, S), l[:chunk], f[: need[2]].view(chunk, T, hidden))
+                for a, l, f in self.flat]
+
+
+def _pack(slot: _Slot, audio, bounds, lens, rows):
+    """Writes the units `bounds` (cut to `lens`, as `pad_units` cuts them)
+    zero-padded into the slot's first `rows` rows; the rows past the units
+    get length 0."""
+    a, l = slot.audio.numpy(), slot.lens.numpy()
+    S = a.shape[1]
+    for r, (s, e) in enumerate(bounds):
+        seg = audio[s:e][:S]
+        a[r, : len(seg)] = seg
+        a[r, len(seg):] = 0
+    a[len(bounds) : rows] = 0
+    l[: len(bounds)] = lens
+    l[len(bounds) : rows] = 0
 
 
 class _WeightlessEncoder:

@@ -16,20 +16,28 @@ timeline and count there as device activity). With tracing off, `span()`
 returns one shared handle that does nothing: no clock, no record, no range.
 
 No span synchronises the device. Each is one of two kinds:
-- wall-true: it ends with its outputs on the host (a pull, or a blocking
-  copy from pageable memory, waits for the device), so its host time is its
-  real time;
+- wall-true: it ends with its outputs on the host (a pull, a blocking copy
+  from pageable memory, or a wait on the event recorded after a copy waits
+  for the device), so its host time is its real time;
 - enqueue only: it ends once its work is queued; its device time is read
   from a device trace through its `mts.<name>` range.
 
 Spans (kind; counts), by where they open:
   encoders/ (every encoder's encode_document)
     encode_document            wall-true; units
-  encoders/engine.Wav2Vec2Encoder.encode_document
-    encode_document.pack       wall-true (host); pad_units once, bucket_rows per chunk
-    encode_document.to_device  wall-true; bytes_to_device (per chunk)
-    encode_document.forward    enqueue only
-    encode_document.to_host    wall-true; bytes_to_host (the chunk's frames)
+  encoders/engine.Wav2Vec2Encoder.encode_document (one chunk ahead: chunk
+  i+1's pack, to_device and forward open before chunk i's to_host and slice)
+    encode_document.pack       wall-true (host): the padded length and the
+                               document's frame array once, then each chunk's
+                               rows into its staging slot
+    encode_document.to_device  enqueue only; bytes_to_device (per chunk, from
+                               a pinned slot on a card)
+    encode_document.forward    enqueue only: the forward and its frames' copy
+                               into the slot; ahead (1 when an earlier chunk's
+                               frames were still undrained, else 0)
+    encode_document.to_host    wall-true: the wait on the chunk's event and the
+                               copy of its slot into the document's array;
+                               bytes_to_host (the chunk's frames)
     encode_document.slice      wall-true (host): each unit's valid frames
   train/loop.Trainer.fit
     fit                        wall-true; epochs (len of the history)

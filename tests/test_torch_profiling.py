@@ -216,10 +216,12 @@ def test_wav2vec2_encode_document_spans(traced):
     top = [r for r in records if r.name == "encode_document"]
     assert len(top) == 1 and top[0].counts == {"units": len(bounds)}
     names = [r.name for r in records]
-    # pad_units once, then per chunk: bucket_rows, to_device, forward, to_host, slice
-    per_chunk = ["encode_document.pack", "encode_document.to_device", "encode_document.forward",
-                 "encode_document.to_host", "encode_document.slice"]
-    assert names == ["encode_document", "encode_document.pack"] + per_chunk * 2
+    # the document's padded length once, then one chunk ahead: chunk 1 is packed,
+    # sent and queued before chunk 0's frames are drained and sliced
+    queue = ["encode_document.pack", "encode_document.to_device", "encode_document.forward"]
+    drain = ["encode_document.to_host", "encode_document.slice"]
+    assert names == ["encode_document", "encode_document.pack"] + queue * 2 + drain * 2
+    assert [r.counts["ahead"] for r in records if r.name.endswith(".forward")] == [0, 1]
     assert all(parent == "encode_document" for _, parent in _tree(records)[1:])
     # whole 1-s units keep every frame the chunk brought back
     to_host = sum(r.counts["bytes_to_host"] for r in records if r.name.endswith(".to_host"))
