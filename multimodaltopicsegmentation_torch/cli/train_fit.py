@@ -130,6 +130,16 @@ def infer_embedding_dim(encoder: str, encoder2=None, timing_file=None, pca=False
     return one(encoder) + extra
 
 
+def data_width(folds):
+    """The width of the loaded embeddings, timing columns included (the first
+    document's), or None when no fold holds a document."""
+    for fold in folds:
+        for docs in fold:
+            if docs:
+                return int(np.shape(docs[0][0])[-1])
+    return None
+
+
 def apply_pca(train_docs, other_doc_lists, n_components: int, device="cpu"):
     """PCA fit on the concatenated training units and applied to them and to
     each list of `other_doc_lists` (valid, test) with the training mean, as
@@ -366,6 +376,12 @@ def main(args):
     embedding_dim = infer_embedding_dim(args.encoder, args.encoder2 if double else None,
                                         args.timing_file, args.pca_reduce, args.pca_value)
     emb_dim, emb_dim2 = embedding_dim if isinstance(embedding_dim, list) else (embedding_dim, 0)
+    if not args.pca_reduce:
+        # the embeddings' own width wins over the encoder name's: a `wav2vec`
+        # folder of WavLM-Large frames is 1024 wide, not 768
+        emb_dim = data_width(folds) or emb_dim
+        if double:
+            emb_dim2 = data_width(folds2) or emb_dim2
 
     monitor = "training_loss" if args.no_validation else "val_loss"
     best_results = {"F1": 0, "Pk": 1, "WD": 1}

@@ -6,9 +6,9 @@ the device in chunks:
 - unit-level DSP encoders (prosodic 167-d, mfcc 200-d) run dsp/prosody.py;
   prosodic chunks carry one unit of left context so that the pitch-jump
   chain survives chunking;
-- wav2vec2 runs the transformer over 256-row chunks, one chunk ahead of the
-  copy of its frames to the host (through two pinned staging slots), and
-  slices each unit's valid frames;
+- wav2vec2 (or WavLM, by the checkpoint's config) runs the transformer over
+  256-row chunks, one chunk ahead of the copy of its frames to the host
+  (through two pinned staging slots), and slices each unit's valid frames;
 - x-vector, ECAPA, OpenL3 and CREPE live in tdnn.py, openl3.py, crepe.py.
 
 Encoders without weights raise unless MTS_RANDOM_ENCODER_WEIGHTS=1
@@ -83,10 +83,16 @@ class MFCCEncoder:
 
 
 class Wav2Vec2Encoder:
+    """wav2vec2 or WavLM (the checkpoint's config.json says which), as
+    `encoders/wav2vec2.py` runs them."""
+
     name = "wav2vec"
-    dim = 768
     frame_level = True
     _slots = None  # _StagingSlots, made at the first encode_document
+
+    @property
+    def dim(self) -> int:
+        return self.cfg.hidden_size
 
     def __init__(self, name_or_path: str = "facebook/wav2vec2-base-960h", device="cuda"):
         self.device = resolve_device(device)

@@ -1,19 +1,39 @@
-"""wav2vec2 audio encoder as a torch module with HF parameter names.
+"""wav2vec2 and WavLM audio encoders as one torch module with HF parameter
+names.
 
 Counterpart of the JAX package's encoders/wav2vec2.py, with the same
 forward contract: `Wav2Vec2(cfg)(audio [B, S], lengths [B]) -> [B, T, hidden]`.
 
-Architecture (wav2vec2-base, do_stable_layer_norm=False):
+Architecture (wav2vec2-base, the defaults):
   7-layer strided conv feature extractor (group norm on layer 0, GELU)
   -> LayerNorm + linear feature projection (512 -> 768)
   -> grouped positional conv (k=128, groups=16) + GELU, add
   -> post-LN transformer encoder (12 layers, 12 heads, FFN 3072)
 
+The HF options the larger checkpoints set (`Wav2Vec2Config.wavlm_large()`,
+microsoft/wavlm-large; Chen et al. 2021, arXiv:2110.13900):
+  feat_extract_norm="layer"   every conv is followed by a LayerNorm over its
+                              channels, per frame, then GELU (conv_bias: the
+                              convs' own bias)
+  do_stable_layer_norm=True   pre-LN layers, x += Attn(LN1(x)); x +=
+                              FFN(LN2(x)), no norm after the positional conv
+                              and one after the last layer
+  num_buckets > 0             WavLM's gated relative position bias: layer 0
+                              holds `rel_attn_embed` [buckets, H]; P[h, i, j]
+                              = rel_attn_embed[bucket(j - i), h] (T5's
+                              bidirectional buckets) is built once a forward
+                              and shared by every layer; each layer gates it
+                              per (row, head, query) from the head's slice u
+                              of its attention input: (a, b) = sigmoid(sum of
+                              view(W_g u + b_g, [2, 4]) over 4), gate = a (b c_h
+                              - 1) + 2, scores = q k^T / sqrt(Dh) + gate P
+
 With `lengths`, every statistic respects each row's valid samples, so a
 padded batch equals one-row-at-a-time runs (HF's own batched group norm does
-not). Layer 0's norm + GELU is kernel K1 (ops/instance_norm_gelu) when the
-norm is per channel, as in wav2vec2-base; other geometries (`tiny()` has 4
-groups over 16 channels) take the plain masked group norm on every device.
+not). Layer 0's group norm + GELU is kernel K1 (ops/instance_norm_gelu) when
+the norm is per channel, as in wav2vec2-base; other geometries (`tiny()` has
+4 groups over 16 channels) take the plain masked group norm on every device.
+The layer norms of "layer" are per frame and need no mask.
 
 The positional conv holds its weight-norm already folded, under
 `encoder.pos_conv_embed.conv.weight`; `load_hf_state_dict` folds HF's
@@ -23,6 +43,7 @@ the JAX parameter pytree (numpy leaves) over.
 from __future__ import annotations
 
 import dataclasses
+import json
 import os
 from typing import Optional, Sequence
 
@@ -31,8 +52,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.attention import dense_attention, merge_heads, split_heads
+from ..ops.attention import dense_attention, merge_heads, split_heads, t5_relative_bucket
 from ..ops.instance_norm_gelu import instance_norm_gelu
+from ..utils import profiling
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,10 +71,52 @@ class Wav2Vec2Config:
     pos_conv_groups: int = 16
     layer_norm_eps: float = 1e-5
     do_normalize: bool = True  # processor zero-mean/unit-var per utterance
+    feat_extract_norm: str = "group"  # "group" (layer 0 only) or "layer" (every conv)
+    do_stable_layer_norm: bool = False  # pre-LN layers and a final norm
+    conv_bias: bool = False
+    num_buckets: int = 0  # WavLM's relative position buckets; 0: no relative bias
+    max_bucket_distance: int = 800
+
+    def __post_init__(self):
+        if self.feat_extract_norm not in ("group", "layer"):
+            raise ValueError(f"feat_extract_norm must be 'group' or 'layer', "
+                             f"not {self.feat_extract_norm!r}")
 
     @classmethod
     def base(cls):
         return cls()
+
+    @classmethod
+    def wavlm_large(cls):
+        """microsoft/wavlm-large's config.json."""
+        return cls(hidden_size=1024, num_layers=24, num_heads=16, ffn_dim=4096,
+                   feat_extract_norm="layer", do_stable_layer_norm=True, num_buckets=320)
+
+    @classmethod
+    def from_hf(cls, hf: dict):
+        """The config of an HF `config.json` of `model_type` "wav2vec2" or
+        "wavlm" (keys it lacks take HF's defaults)."""
+        kind = hf.get("model_type")
+        if kind not in ("wav2vec2", "wavlm"):
+            raise ValueError(f"model_type {kind!r} is neither 'wav2vec2' nor 'wavlm'")
+        for key in ("hidden_act", "feat_extract_activation"):
+            if hf.get(key, "gelu") != "gelu":
+                raise ValueError(f"{key} {hf[key]!r}: only 'gelu' is implemented")
+        conv_dim = tuple(hf.get("conv_dim", cls.conv_dim))
+        return cls(
+            conv_dim=conv_dim, conv_kernel=tuple(hf.get("conv_kernel", cls.conv_kernel)),
+            conv_stride=tuple(hf.get("conv_stride", cls.conv_stride)),
+            num_groupnorm_groups=conv_dim[0], hidden_size=hf.get("hidden_size", 768),
+            num_layers=hf.get("num_hidden_layers", 12), num_heads=hf.get("num_attention_heads", 12),
+            ffn_dim=hf.get("intermediate_size", 3072),
+            pos_conv_kernel=hf.get("num_conv_pos_embeddings", 128),
+            pos_conv_groups=hf.get("num_conv_pos_embedding_groups", 16),
+            layer_norm_eps=hf.get("layer_norm_eps", 1e-5),
+            feat_extract_norm=hf.get("feat_extract_norm", "group"),
+            do_stable_layer_norm=hf.get("do_stable_layer_norm", False),
+            conv_bias=hf.get("conv_bias", False),
+            num_buckets=hf.get("num_buckets", 320) if kind == "wavlm" else 0,
+            max_bucket_distance=hf.get("max_bucket_distance", 800))
 
     @classmethod
     def tiny(cls):
@@ -98,11 +162,11 @@ def group_norm(x, scale, bias, groups, lengths=None, eps=1e-5):
 
 
 class _ConvLayer(nn.Module):
-    def __init__(self, c_in, c_out, kernel, norm_groups=None):
+    def __init__(self, c_in, c_out, kernel, norm, bias):
         super().__init__()
-        self.conv = nn.Conv1d(c_in, c_out, kernel, bias=False)
-        if norm_groups is not None:
-            self.layer_norm = nn.GroupNorm(norm_groups, c_out)
+        self.conv = nn.Conv1d(c_in, c_out, kernel, bias=bias)
+        if norm is not None:
+            self.layer_norm = norm
 
 
 class _FeatureExtractor(nn.Module):
@@ -111,7 +175,11 @@ class _FeatureExtractor(nn.Module):
         c_in = 1
         layers = []
         for i, (c, k) in enumerate(zip(cfg.conv_dim, cfg.conv_kernel)):
-            layers.append(_ConvLayer(c_in, c, k, cfg.num_groupnorm_groups if i == 0 else None))
+            if cfg.feat_extract_norm == "layer":
+                norm = nn.LayerNorm(c)
+            else:
+                norm = nn.GroupNorm(cfg.num_groupnorm_groups, c) if i == 0 else None
+            layers.append(_ConvLayer(c_in, c, k, norm, cfg.conv_bias))
             c_in = c
         self.conv_layers = nn.ModuleList(layers)
 
@@ -132,12 +200,27 @@ class _PosConv(nn.Module):
 
 
 class _Attention(nn.Module):
-    def __init__(self, D):
+    def __init__(self, cfg, first: bool):
         super().__init__()
+        D, H = cfg.hidden_size, cfg.num_heads
         self.q_proj = nn.Linear(D, D)
         self.k_proj = nn.Linear(D, D)
         self.v_proj = nn.Linear(D, D)
         self.out_proj = nn.Linear(D, D)
+        if cfg.num_buckets:
+            self.gru_rel_pos_const = nn.Parameter(torch.ones(1, H, 1, 1))
+            self.gru_rel_pos_linear = nn.Linear(D // H, 8)
+            if first:
+                self.rel_attn_embed = nn.Embedding(cfg.num_buckets, H)
+
+    def gated_bias(self, u, P):
+        """u [B, T, D] (the attention's input), P [H, T, T] -> the gated bias
+        [B, H, T, T] of WavLM: gate[b, h, i] * P[h, i, j]."""
+        B, T, _ = u.shape
+        H = P.shape[0]
+        g = self.gru_rel_pos_linear(split_heads(u, H)).reshape(B, H, T, 2, 4).sum(-1)
+        a, b = torch.sigmoid(g).chunk(2, dim=-1)
+        return (a * (b * self.gru_rel_pos_const - 1.0) + 2.0) * P
 
 
 class _FeedForward(nn.Module):
@@ -148,23 +231,33 @@ class _FeedForward(nn.Module):
 
 
 class _EncoderLayer(nn.Module):
-    def __init__(self, cfg):
+    def __init__(self, cfg, first: bool):
         super().__init__()
         D = cfg.hidden_size
-        self.attention = _Attention(D)
+        self.attention = _Attention(cfg, first)
         self.layer_norm = nn.LayerNorm(D, eps=cfg.layer_norm_eps)
         self.feed_forward = _FeedForward(D, cfg.ffn_dim)
         self.final_layer_norm = nn.LayerNorm(D, eps=cfg.layer_norm_eps)
         self.num_heads = cfg.num_heads
+        self.pre_ln = cfg.do_stable_layer_norm
 
-    def forward(self, x, fmask):
-        att = self.attention
-        q = split_heads(att.q_proj(x), self.num_heads)
-        k = split_heads(att.k_proj(x), self.num_heads)
-        v = split_heads(att.v_proj(x), self.num_heads)
-        a = att.out_proj(merge_heads(dense_attention(q, k, v, fmask)))
+    def forward(self, x, fmask, P=None):
+        """x [B, T, D]; P: the relative position bias [H, T, T] or None."""
+        att, ff = self.attention, self.feed_forward
+        u = self.layer_norm(x) if self.pre_ln else x
+        bias = None
+        if P is not None:
+            with profiling.span("encode_document.forward.gate", heads=self.num_heads):
+                bias = att.gated_bias(u, P)
+        q = split_heads(att.q_proj(u), self.num_heads)
+        k = split_heads(att.k_proj(u), self.num_heads)
+        v = split_heads(att.v_proj(u), self.num_heads)
+        a = att.out_proj(merge_heads(dense_attention(q, k, v, fmask, bias=bias)))
+        if self.pre_ln:
+            x = x + a
+            return x + ff.output_dense(F.gelu(ff.intermediate_dense(self.final_layer_norm(x))))
         x = self.layer_norm(x + a)
-        h = self.feed_forward.output_dense(F.gelu(self.feed_forward.intermediate_dense(x)))
+        h = ff.output_dense(F.gelu(ff.intermediate_dense(x)))
         return self.final_layer_norm(x + h)
 
 
@@ -173,7 +266,7 @@ class _Encoder(nn.Module):
         super().__init__()
         self.pos_conv_embed = _PosConv(cfg)
         self.layer_norm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
-        self.layers = nn.ModuleList(_EncoderLayer(cfg) for _ in range(cfg.num_layers))
+        self.layers = nn.ModuleList(_EncoderLayer(cfg, i == 0) for i in range(cfg.num_layers))
 
 
 class Wav2Vec2(nn.Module):
@@ -183,6 +276,18 @@ class Wav2Vec2(nn.Module):
         self.feature_extractor = _FeatureExtractor(cfg)
         self.feature_projection = _FeatureProjection(cfg)
         self.encoder = _Encoder(cfg)
+        self._buckets = {}  # (T, device) -> [T, T] bucket indices of the relative bias
+
+    def relative_bias(self, T: int, device):
+        """P [H, T, T] = rel_attn_embed[bucket(j - i)], heads first."""
+        key = (T, str(device))
+        if key not in self._buckets:
+            pos = torch.arange(T)
+            self._buckets[key] = t5_relative_bucket(
+                pos[None, :] - pos[:, None], self.cfg.num_buckets,
+                self.cfg.max_bucket_distance).to(device)
+        table = self.encoder.layers[0].attention.rel_attn_embed.weight
+        return table[self._buckets[key]].permute(2, 0, 1)
 
     def forward(self, audio: torch.Tensor, lengths: Optional[torch.Tensor] = None):
         """audio: [B, S] raw 16 kHz -> [B, T, hidden] frame embeddings (~50 Hz)."""
@@ -205,22 +310,8 @@ class Wav2Vec2(nn.Module):
             if lengths is not None:
                 audio = audio * m
 
-        x = audio[:, None, :]  # [B, 1, S]
-        cur_len = lengths
-        for i, layer in enumerate(self.feature_extractor.conv_layers):
-            x = F.conv1d(x, layer.conv.weight, stride=cfg.conv_stride[i])
-            if cur_len is not None:
-                cur_len = ((cur_len - cfg.conv_kernel[i]) // cfg.conv_stride[i] + 1).clamp_min(0)
-            if i == 0:
-                gn = layer.layer_norm
-                if cfg.num_groupnorm_groups == x.shape[1]:
-                    x = instance_norm_gelu(x, gn.weight, gn.bias, cur_len)
-                    continue
-                x = group_norm(x, gn.weight, gn.bias, cfg.num_groupnorm_groups, cur_len)
-            x = F.gelu(x)
-
-        x = x.transpose(1, 2)  # [B, T, C]
-        x = self.feature_projection.projection(self.feature_projection.layer_norm(x))
+        with profiling.span("encode_document.forward.features"):
+            x = self._features(audio, lengths)
 
         T = x.shape[1]
         if lengths is not None:
@@ -236,10 +327,43 @@ class Wav2Vec2(nn.Module):
         if cfg.pos_conv_kernel % 2 == 0:
             pos = pos[..., :-1]
         x = x + F.gelu(pos.transpose(1, 2))
-        x = self.encoder.layer_norm(x) * fmask[..., None]
+        if not cfg.do_stable_layer_norm:
+            x = self.encoder.layer_norm(x) * fmask[..., None]
+        P = None
+        if cfg.num_buckets:
+            with profiling.span("encode_document.forward.rel_bias") as rel:
+                P = self.relative_bias(T, x.device)
+                rel.add("bias_bytes", P.numel() * P.element_size())
         for layer in self.encoder.layers:
-            x = layer(x, fmask)
+            x = layer(x, fmask, P)
+        if cfg.do_stable_layer_norm:
+            x = self.encoder.layer_norm(x)
         return x
+
+    def _features(self, audio, lengths):
+        """audio [B, S] (normalised) -> the projected features [B, T, hidden]:
+        the conv stack, its norms and GELUs, and the feature projection."""
+        cfg = self.cfg
+        x = audio[:, None, :]  # [B, 1, S]
+        cur_len = lengths
+        for i, layer in enumerate(self.feature_extractor.conv_layers):
+            x = F.conv1d(x, layer.conv.weight, layer.conv.bias, stride=cfg.conv_stride[i])
+            if cur_len is not None:
+                cur_len = ((cur_len - cfg.conv_kernel[i]) // cfg.conv_stride[i] + 1).clamp_min(0)
+            if cfg.feat_extract_norm == "layer":  # over the channels of each frame
+                ln = layer.layer_norm
+                x = F.gelu(F.layer_norm(x.transpose(1, 2), ln.normalized_shape, ln.weight,
+                                        ln.bias, ln.eps)).transpose(1, 2)
+                continue
+            if i == 0:
+                gn = layer.layer_norm
+                if cfg.num_groupnorm_groups == x.shape[1]:
+                    x = instance_norm_gelu(x, gn.weight, gn.bias, cur_len)
+                    continue
+                x = group_norm(x, gn.weight, gn.bias, cfg.num_groupnorm_groups, cur_len)
+            x = F.gelu(x)
+        x = x.transpose(1, 2)  # [B, T, C]
+        return self.feature_projection.projection(self.feature_projection.layer_norm(x))
 
     @torch.no_grad()
     def init_random_(self, generator: torch.Generator):
@@ -249,6 +373,8 @@ class Wav2Vec2(nn.Module):
         for name, p in self.named_parameters():
             if "norm" in name:
                 p.fill_(1.0 if name.endswith("weight") else 0.0)
+            elif name.endswith("gru_rel_pos_const"):
+                p.fill_(1.0)
             elif name.endswith("bias"):
                 p.zero_()
             else:
@@ -319,11 +445,14 @@ def _index_tree(tree, i):
 
 
 def load_hf_state_dict(sd: dict, cfg: Wav2Vec2Config) -> dict:
-    """HF Wav2Vec2Model state_dict -> this module's state_dict: the names are
-    HF's; the positional conv's weight norm (dim=2) is folded. A
-    `wav2vec2.` prefix (CTC checkpoints) is dropped, as are keys the encoder
-    does not use (e.g. `masked_spec_embed`, `lm_head.*`)."""
-    sd = {(k[len("wav2vec2."):] if k.startswith("wav2vec2.") else k): v for k, v in sd.items()}
+    """HF Wav2Vec2Model or WavLMModel state_dict -> this module's state_dict:
+    the names are HF's (WavLM's `rel_attn_embed`, `gru_rel_pos_*` and the
+    per-conv `layer_norm` included); the positional conv's weight norm
+    (dim=2) is folded. A `wav2vec2.` or `wavlm.` prefix (CTC and other head
+    checkpoints) is dropped, as are keys the encoder does not use (e.g.
+    `masked_spec_embed`, `lm_head.*`)."""
+    sd = {k.split(".", 1)[1] if k.startswith(("wav2vec2.", "wavlm.")) else k: v
+          for k, v in sd.items()}
     pos = "encoder.pos_conv_embed.conv"
     if f"{pos}.weight_g" in sd:
         wg, wv = sd[f"{pos}.weight_g"], sd[f"{pos}.weight_v"]
@@ -342,14 +471,28 @@ def load_hf_state_dict(sd: dict, cfg: Wav2Vec2Config) -> dict:
 
 
 def load_pretrained(path: str):
-    """A local HF checkpoint (directory with pytorch_model.bin, or the file
-    itself) -> (state_dict, Wav2Vec2Config.base())."""
-    cfg = Wav2Vec2Config.base()
+    """A local HF checkpoint -> (state_dict, config). `path` is its directory
+    (pytorch_model.bin or model.safetensors) or the weights file itself. The
+    config is the `config.json` beside the weights (a wav2vec2 or WavLM
+    model), or wav2vec2-base's when there is none."""
+    folder = path if os.path.isdir(path) else os.path.dirname(path)
     if os.path.isdir(path):
-        path = os.path.join(path, "pytorch_model.bin")
+        path = os.path.join(folder, "pytorch_model.bin")
+        if not os.path.exists(path) and os.path.exists(os.path.join(folder, "model.safetensors")):
+            path = os.path.join(folder, "model.safetensors")
     if not os.path.exists(path):
         raise RuntimeError(
             f"wav2vec2 weights {path!r} not found: point MTS_WAV2VEC2_WEIGHTS at a "
-            "local HF checkpoint directory holding pytorch_model.bin"
+            "local HF checkpoint directory holding pytorch_model.bin or model.safetensors"
         )
-    return load_hf_state_dict(torch.load(path, map_location="cpu", weights_only=True), cfg), cfg
+    cfg = Wav2Vec2Config.base()
+    if os.path.exists(os.path.join(folder, "config.json")):
+        with open(os.path.join(folder, "config.json")) as f:
+            cfg = Wav2Vec2Config.from_hf(json.load(f))
+    if path.endswith(".safetensors"):
+        from safetensors.torch import load_file
+
+        sd = load_file(path)
+    else:
+        sd = torch.load(path, map_location="cpu", weights_only=True)
+    return load_hf_state_dict(sd, cfg), cfg

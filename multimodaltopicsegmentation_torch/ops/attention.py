@@ -53,10 +53,14 @@ def _drop_probs(w, rate: float, generator):
     return torch.where(m, w / keep, 0.0)
 
 
-def dense_attention(q, k, v, mask=None, probs_drop: float = 0.0, generator=None):
+def dense_attention(q, k, v, mask=None, probs_drop: float = 0.0, generator=None, bias=None):
     """q, k, v: [B, H, L, Dh]; mask: [B, L] float (1 = valid key);
-    probs_drop/generator: train-time attention-probs dropout."""
+    probs_drop/generator: train-time attention-probs dropout; bias: an
+    additive score bias broadcast to [B, H, L, L] (WavLM's gated relative
+    position bias), added before the mask."""
     scores = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(q.shape[-1])
+    if bias is not None:
+        scores = scores + bias
     if mask is not None:
         scores = scores + (1.0 - mask[:, None, None, :]) * NEG_INF
     w = _drop_probs(torch.softmax(scores, dim=-1), probs_drop, generator)

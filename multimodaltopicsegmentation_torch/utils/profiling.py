@@ -35,6 +35,13 @@ Spans (kind; counts), by where they open:
     encode_document.forward    enqueue only: the forward and its frames' copy
                                into the slot; ahead (1 when an earlier chunk's
                                frames were still undrained, else 0)
+  encoders/wav2vec2.Wav2Vec2.forward (inside encode_document.forward)
+    encode_document.forward.features  enqueue only: the conv stack, its norms
+                               and the feature projection
+    encode_document.forward.rel_bias  enqueue only (WavLM): the relative
+                               position bias P, once a forward; bias_bytes
+    encode_document.forward.gate      enqueue only (WavLM), one per layer: the
+                               layer's gate and its product with P; heads
     encode_document.to_host    wall-true: the wait on the chunk's event and the
                                copy of its slot into the document's array;
                                bytes_to_host (the chunk's frames)

@@ -196,11 +196,13 @@ def test_device_epoch_fit_opens_windows(traced, tmp_path, monkeypatch):
     assert records[0].counts == {"epochs": 3}
 
 
-def _tiny_wav2vec2_encoder():
+def _tiny_wav2vec2_encoder(**changes):
+    import dataclasses
+
     from multimodaltopicsegmentation_torch.encoders import wav2vec2 as W
     from multimodaltopicsegmentation_torch.encoders.engine import Wav2Vec2Encoder
 
-    cfg = W.Wav2Vec2Config.tiny()
+    cfg = dataclasses.replace(W.Wav2Vec2Config.tiny(), **changes)
     enc = Wav2Vec2Encoder.__new__(Wav2Vec2Encoder)
     enc.device, enc.cfg = torch.device("cpu"), cfg
     enc.model = W.build_model(cfg, W.random_state_dict(cfg, seed=0), enc.device)
@@ -215,19 +217,49 @@ def test_wav2vec2_encode_document_spans(traced):
     records = profiling.spans()
     top = [r for r in records if r.name == "encode_document"]
     assert len(top) == 1 and top[0].counts == {"units": len(bounds)}
-    names = [r.name for r in records]
     # the document's padded length once, then one chunk ahead: chunk 1 is packed,
     # sent and queued before chunk 0's frames are drained and sliced
     queue = ["encode_document.pack", "encode_document.to_device", "encode_document.forward"]
     drain = ["encode_document.to_host", "encode_document.slice"]
-    assert names == ["encode_document", "encode_document.pack"] + queue * 2 + drain * 2
+    tree = _tree(records)
+    outer = [name for name, parent in tree if parent in (None, "encode_document")]
+    assert outer == ["encode_document", "encode_document.pack"] + queue * 2 + drain * 2
     assert [r.counts["ahead"] for r in records if r.name.endswith(".forward")] == [0, 1]
-    assert all(parent == "encode_document" for _, parent in _tree(records)[1:])
+    # inside each forward: the conv stack's span alone (no relative bias in wav2vec2)
+    assert [name for name, parent in tree if parent == "encode_document.forward"] == \
+        ["encode_document.forward.features"] * 2
+    assert len(tree) == 1 + 1 + 2 * len(queue) + 2 * len(drain) + 2
     # whole 1-s units keep every frame the chunk brought back
     to_host = sum(r.counts["bytes_to_host"] for r in records if r.name.endswith(".to_host"))
     assert to_host == sum(f.nbytes for f in frames)
     to_device = sum(r.counts["bytes_to_device"] for r in records if r.name.endswith(".to_device"))
     assert to_device == 2 * 4 * (SR * 4 + 4)  # two chunks of 4 rows (the tail bucketed) + lengths
+
+
+def test_wavlm_forward_spans_nest_under_forward(traced):
+    """WavLM's forward opens, inside each `encode_document.forward`, the conv
+    stack's span, the relative bias's once (its bytes, H x T x T float32) and
+    one gate span a layer (its heads)."""
+    from multimodaltopicsegmentation_torch.encoders import wav2vec2 as W
+
+    enc = _tiny_wav2vec2_encoder(feat_extract_norm="layer", do_stable_layer_norm=True,
+                                 num_buckets=32, max_bucket_distance=64)
+    audio = np.random.default_rng(1).standard_normal(3 * SR).astype(np.float32)
+    bounds = [(i * SR, (i + 1) * SR) for i in range(3)]
+    enc.encode_document(audio, bounds, chunk=2)
+    records = profiling.spans()
+    forwards = [i for i, r in enumerate(records) if r.name == "encode_document.forward"]
+    assert len(forwards) == 2
+    cfg = enc.cfg
+    T = W.feature_extractor_output_length(cfg, SR)
+    for f in forwards:
+        inner = [r for r in records if r.parent == f]
+        assert [r.name for r in inner] == (
+            ["encode_document.forward.features", "encode_document.forward.rel_bias"]
+            + ["encode_document.forward.gate"] * cfg.num_layers)
+        assert inner[1].counts == {"bias_bytes": cfg.num_heads * T * T * 4}
+        assert all(r.counts == {"heads": cfg.num_heads} for r in inner[2:])
+        assert all(records[f].start <= r.start and r.end <= records[f].end for r in inner)
 
 
 def test_every_encoder_opens_encode_document():
