@@ -21,7 +21,12 @@ Phases (any failure exits non-zero, and no result line is printed):
    window/2, 96] with the line exchange's prefix lengths, a pipeline
    microbatch's [1, 8, 3600, 96], a data-parallel share's [5, 8, 3600, 96]),
    held to their plain versions and not timed; then the four
-   differentiable flash entries' gradients against the plain path's;
+   differentiable flash entries' gradients against the plain path's; then
+   the 3xTF32 dense layer (linear_tf32x3) at the six main-path shapes of
+   wav2vec2-base and of WavLM-Large (the five linears of a 256-row chunk,
+   12,544 frames, and the FFN's first at a 32-row tail, 1,568), against
+   float64, with its device time, its 3xTF32 floor, the plain version's time
+   and F.linear's in float32;
 3. the audio path end to end: synthetic wavs, a random-weight BiLSTM
    checkpoint (embedding 768, h 256, 2 layers, FocalLoss) and the predict
    CLI with -ee on cuda under MTS_RANDOM_ENCODER_WEIGHTS=1 (random
@@ -131,6 +136,8 @@ line is {"ok": true, "device": {...}}. Working files go to build/chip_smoke/.
 build: it times K2 as built against a build whose tile product does every
 row that sees no key (`-DMTS_NO_KEY_SHORTCUTS=0`), and prints the times as
 one JSON object.
+`python3 chip_smoke.py --linear` runs only the check and the timings of the
+dense layer after the build and prints them as one JSON object.
 """
 from __future__ import annotations
 
@@ -291,6 +298,72 @@ def check_instance_norm_gelu(dev):
         "bound_by": bound_by,
         "library_ms": library_ms,
     }
+
+
+# (name, K, N, GELU) of the encoder's dense layers: projection, Q/K/V as one,
+# out_proj, intermediate_dense, output_dense
+LINEARS = {"wav2vec2-base": (("projection", 512, 768, False), ("qkv", 768, 2304, False),
+                             ("out_proj", 768, 768, False), ("intermediate", 768, 3072, True),
+                             ("output", 3072, 768, False)),
+           "WavLM-Large": (("projection", 512, 1024, False), ("qkv", 1024, 3072, False),
+                           ("out_proj", 1024, 1024, False), ("intermediate", 1024, 4096, True),
+                           ("output", 4096, 1024, False))}
+CHUNK_ROWS, TAIL_ROWS = 256 * 49, 32 * 49  # frames of a 256-row chunk and of a 32-row tail
+
+
+def check_linear_tf32x3(dev):
+    """The 3xTF32 dense layer at the main path's shapes of both encoders:
+    error against float64 over |x| |w|^T + |b| (one TF32 pass reads 3e-5 or
+    more), device time against the 3xTF32 floor, the plain version (the same
+    three products in float32 GEMMs) and F.linear in float32."""
+    import torch
+    import torch.nn.functional as F
+
+    from multimodaltopicsegmentation_torch.ops import linear_tf32x3 as K
+
+    shapes = []
+    for model, linears in LINEARS.items():
+        cases = [(name, CHUNK_ROWS, k, n, gelu) for name, k, n, gelu in linears]
+        cases.append(("intermediate", TAIL_ROWS) + linears[3][1:])
+        for name, M, Kd, N, gelu in cases:
+            g = torch.Generator(device=dev).manual_seed(M + Kd + N)
+            x = torch.randn(M, Kd, device=dev, generator=g)
+            w = torch.randn(N, Kd, device=dev, generator=g) * Kd ** -0.5
+            b = 0.1 * torch.randn(N, device=dev, generator=g)
+            pair = K._operands(w)
+            got = K.linear_tf32x3(x, pair, b, gelu)
+            torch.cuda.synchronize()
+            want = x.double() @ w.double().T + b.double()
+            want = F.gelu(want) if gelu else want
+            scale = x.double().abs() @ w.double().abs().T + b.double().abs()
+            err = ((got.double() - want).abs() / scale).max().item()
+            if err > 1e-5:
+                raise RuntimeError(f"linear_tf32x3 {model} {name} [{M}, {Kd}] -> {N}: error {err:.3e}")
+            del got, want, scale
+            ops = 2 * M * N * Kd
+            bytes_moved = 4 * (M * Kd + 2 * N * Kd + N + M * N)
+            row = {"model": model, "linear": name, "M": M, "K": Kd, "N": N, "gelu": gelu,
+                   "error": err,
+                   "ms": time_ms(lambda: K.linear_tf32x3(x, pair, b, gelu)),
+                   "device_ms": time_ms(lambda: K.linear_tf32x3(x, pair, b, gelu), spin=True),
+                   "bound_ms": bound_tc(bytes_moved, ops),
+                   "plain_ms": time_ms(lambda: K.linear_tf32x3_reference(x, w, b, gelu), iters=5),
+                   "library_ms": time_ms(lambda: F.gelu(F.linear(x, w, b)) if gelu
+                                         else F.linear(x, w, b), spin=True)}
+            row["share"] = row["bound_ms"] / row["device_ms"]
+            log(f"[linear_tf32x3] {model} {name} [{M}, {Kd}] -> {N}{' + GELU' if gelu else ''}: "
+                f"error {err:.3e}; kernel {row['ms']:.4f} ms ({row['device_ms']:.4f} ms device "
+                f"time), 3xTF32 floor {row['bound_ms']:.4f} ms ({100 * row['share']:.1f} %), "
+                f"plain {row['plain_ms']:.4f} ms, F.linear {row['library_ms']:.4f} ms")
+            shapes.append(row)
+            del x, w, b, pair
+    main = max(shapes, key=lambda r: r["bound_ms"])
+    return {"name": "linear_tf32x3", "route": "cuda",
+            "source": "multimodaltopicsegmentation_torch/csrc/linear_tf32x3.cu",
+            "replaces": "none (the encoders' dense layers, left to XLA in the JAX package)",
+            "max_error": max(r["error"] for r in shapes),
+            **{k: main[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms", "library_ms")},
+            "shapes": shapes}
 
 
 def banded_work(lengths, L, half, block, H, Dh):
@@ -3102,6 +3175,7 @@ def main() -> int:
     from multimodaltopicsegmentation_torch.core.torch_setup import resolve_device
     from multimodaltopicsegmentation_torch.ops import flash_attention as k2
     from multimodaltopicsegmentation_torch.ops import instance_norm_gelu as k1
+    from multimodaltopicsegmentation_torch.ops import linear_tf32x3 as lin
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3124,13 +3198,17 @@ def main() -> int:
     if sys.argv[1:] == ["--no-key-rows"]:
         log(json.dumps({"no_key_rows": no_key_rows_ab(dev)}))
         return 0
-    kernels = {"instance_norm_gelu": k1.instance_norm_gelu}
+    if sys.argv[1:] == ["--linear"]:
+        log(json.dumps({"linear_tf32x3": check_linear_tf32x3(dev)}))
+        return 0
+    kernels = {"instance_norm_gelu": k1.instance_norm_gelu, "linear_tf32x3": lin.linear_tf32x3}
 
     t = time.perf_counter()
     results = {"instance_norm_gelu": check_instance_norm_gelu(dev)}
     results.update(check_flash_attention(dev))
     results.update(check_flash_backward(dev))
     check_autograd_entries(dev)
+    results["linear_tf32x3"] = check_linear_tf32x3(dev)
     log(f"[phase] kernels vs plain: {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
     launches = main_path(kernels)

@@ -35,6 +35,12 @@ the norm is per channel, as in wav2vec2-base; other geometries (`tiny()` has
 4 groups over 16 channels) take the plain masked group norm on every device.
 The layer norms of "layer" are per frame and need no mask.
 
+Every dense linear of the forward (the feature projection, Q/K/V as one
+[3D, D] product, out_proj, intermediate_dense with its GELU, output_dense:
+4 L + 1 a forward) goes through ops/linear_tf32x3's `FusedLinear`: on the
+card the 3xTF32 tensor-core kernel, on the CPU `F.linear` as before. The
+convolutions, the scores and WavLM's gate linear stay torch's.
+
 The positional conv holds its weight-norm already folded, under
 `encoder.pos_conv_embed.conv.weight`; `load_hf_state_dict` folds HF's
 `weight_g`/`weight_v` (or `parametrizations`) pair. `from_jax_params` carries
@@ -54,6 +60,7 @@ from torch import nn
 
 from ..ops.attention import dense_attention, merge_heads, split_heads, t5_relative_bucket
 from ..ops.instance_norm_gelu import instance_norm_gelu
+from ..ops.linear_tf32x3 import FusedLinear
 from ..utils import profiling
 
 
@@ -189,6 +196,7 @@ class _FeatureProjection(nn.Module):
         super().__init__()
         self.layer_norm = nn.LayerNorm(cfg.conv_dim[-1], eps=cfg.layer_norm_eps)
         self.projection = nn.Linear(cfg.conv_dim[-1], cfg.hidden_size)
+        self.fused = FusedLinear(self.projection)
 
 
 class _PosConv(nn.Module):
@@ -207,6 +215,8 @@ class _Attention(nn.Module):
         self.k_proj = nn.Linear(D, D)
         self.v_proj = nn.Linear(D, D)
         self.out_proj = nn.Linear(D, D)
+        self.qkv = FusedLinear(self.q_proj, self.k_proj, self.v_proj)
+        self.out = FusedLinear(self.out_proj)
         if cfg.num_buckets:
             self.gru_rel_pos_const = nn.Parameter(torch.ones(1, H, 1, 1))
             self.gru_rel_pos_linear = nn.Linear(D // H, 8)
@@ -228,6 +238,11 @@ class _FeedForward(nn.Module):
         super().__init__()
         self.intermediate_dense = nn.Linear(D, ffn)
         self.output_dense = nn.Linear(ffn, D)
+        self.intermediate = FusedLinear(self.intermediate_dense)
+        self.output = FusedLinear(self.output_dense)
+
+    def forward(self, x):
+        return self.output(self.intermediate(x, gelu=True))
 
 
 class _EncoderLayer(nn.Module):
@@ -249,16 +264,13 @@ class _EncoderLayer(nn.Module):
         if P is not None:
             with profiling.span("encode_document.forward.gate", heads=self.num_heads):
                 bias = att.gated_bias(u, P)
-        q = split_heads(att.q_proj(u), self.num_heads)
-        k = split_heads(att.k_proj(u), self.num_heads)
-        v = split_heads(att.v_proj(u), self.num_heads)
-        a = att.out_proj(merge_heads(dense_attention(q, k, v, fmask, bias=bias)))
+        q, k, v = (split_heads(t, self.num_heads) for t in att.qkv(u))
+        a = att.out(merge_heads(dense_attention(q, k, v, fmask, bias=bias)))
         if self.pre_ln:
             x = x + a
-            return x + ff.output_dense(F.gelu(ff.intermediate_dense(self.final_layer_norm(x))))
+            return x + ff(self.final_layer_norm(x))
         x = self.layer_norm(x + a)
-        h = ff.output_dense(F.gelu(ff.intermediate_dense(x)))
-        return self.final_layer_norm(x + h)
+        return self.final_layer_norm(x + ff(x))
 
 
 class _Encoder(nn.Module):
@@ -363,7 +375,7 @@ class Wav2Vec2(nn.Module):
                 x = group_norm(x, gn.weight, gn.bias, cfg.num_groupnorm_groups, cur_len)
             x = F.gelu(x)
         x = x.transpose(1, 2)  # [B, T, C]
-        return self.feature_projection.projection(self.feature_projection.layer_norm(x))
+        return self.feature_projection.fused(self.feature_projection.layer_norm(x))
 
     @torch.no_grad()
     def init_random_(self, generator: torch.Generator):
