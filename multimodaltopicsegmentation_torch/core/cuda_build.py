@@ -23,6 +23,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Tuple
@@ -39,6 +40,7 @@ NVCC_FLAGS = (
 HOST_FLAGS = ("-O3", "-march=native", "-fPIC", "-fopenmp", "-std=c++17", "-shared")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+_load_lock = threading.Lock()
 _host = {}  # the host compiler's flags and target, probed once
 
 
@@ -140,9 +142,15 @@ def build_all(names=KERNELS) -> Dict[str, Tuple[float, str]]:
 
 def load(name: str) -> ctypes.CDLL:
     """The library `name`, built first if needed (needs nvcc, or a C++ compiler
-    for a host library)."""
-    if name not in _loaded:
-        if not library_path(name).exists():
-            build_all((name,))
-        _loaded[name] = ctypes.CDLL(str(library_path(name)))
-    return _loaded[name]
+    for a host library). Threads that ask for a library not loaded yet take
+    turns, so that it is built once (its temporary file is named by the
+    process)."""
+    lib = _loaded.get(name)
+    if lib is None:
+        with _load_lock:
+            if name not in _loaded:
+                if not library_path(name).exists():
+                    build_all((name,))
+                _loaded[name] = ctypes.CDLL(str(library_path(name)))
+            lib = _loaded[name]
+    return lib

@@ -25,7 +25,7 @@ import torch
 from ..core.torch_setup import resolve_device
 from ..utils import profiling
 from . import wav2vec2 as W
-from .engine_util import bucket_rows, bucket_samples, pad_units, traced_encode
+from .engine_util import bucket_rows, pad_units, traced_encode, unit_lengths
 
 SR = 16000
 
@@ -115,18 +115,14 @@ class Wav2Vec2Encoder:
         """-> one [frames, hidden] array per unit of `bounds`.
 
         The units are cut to one document-wide padded length S (as
-        `pad_units(..., bucket=True)` decides it) and run through the
+        `unit_lengths(bounds, bucket=True)` gives it) and run through the
         transformer in chunks of `chunk` rows, one chunk ahead: chunk i+1's
         forward is queued before chunk i's frames are drained to the host.
         Each chunk is packed into a staging slot (pinned on a CUDA device),
         copied in and its frames copied back without blocking, and an event
         after the copy back says when the slot is free again."""
         with profiling.span("encode_document.pack"):
-            lens = np.asarray([max(e - s, 1) for s, e in bounds])
-            S = int(lens.max())
-            if len(np.unique(lens)) > 1:
-                S = bucket_samples(S)
-            lens = np.minimum(lens, S).astype(np.int32)
+            lens, S = unit_lengths(bounds, bucket=True)
             T = W.feature_extractor_output_length(self.cfg, S)
             out = np.empty((len(bounds), T, self.cfg.hidden_size), np.float32)
         cuda = self.device.type == "cuda"
@@ -210,7 +206,7 @@ class _StagingSlots:
 
 
 def _pack(slot: _Slot, audio, bounds, lens, rows):
-    """Writes the units `bounds` (cut to `lens`, as `pad_units` cuts them)
+    """Writes the units `bounds` (cut to `lens`, as `unit_lengths` cuts them)
     zero-padded into the slot's first `rows` rows; the rows past the units
     get length 0."""
     a, l = slot.audio.numpy(), slot.lens.numpy()

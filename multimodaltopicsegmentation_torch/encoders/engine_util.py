@@ -53,21 +53,31 @@ def bucket_rows(u: np.ndarray, l: np.ndarray = None, quantum: int = 32,
     return u, l
 
 
-def pad_units(
-    audio: np.ndarray, bounds: Sequence[Tuple[int, int]], max_len: int = None,
-    bucket: bool = False,
-) -> Tuple[np.ndarray, np.ndarray]:
-    """Slice [start, end) sample spans into one zero-padded [U, S] batch.
+def unit_lengths(
+    bounds: Sequence[Tuple[int, int]], max_len: int = None, bucket: bool = False,
+) -> Tuple[np.ndarray, int]:
+    """-> (int32 length of each [start, end) span, padded length S).
 
-    bucket=True quantizes S via `bucket_samples` for RAGGED documents only;
-    uniform documents (the 1-second-unit predict contract) keep their exact
-    shape."""
+    Each length is at least 1; S is `max_len` or the longest length, which
+    bucket=True quantizes via `bucket_samples` for RAGGED documents only
+    (uniform documents, the 1-second-unit predict contract, keep their exact
+    shape); every length is cut at S."""
     lens = [max(e - s, 1) for s, e in bounds]
     S = max_len or max(lens)
     if bucket and max_len is None and len(set(lens)) > 1:
         S = bucket_samples(S)
+    return np.asarray([min(l, S) for l in lens], np.int32), S
+
+
+def pad_units(
+    audio: np.ndarray, bounds: Sequence[Tuple[int, int]], max_len: int = None,
+    bucket: bool = False,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Slice [start, end) sample spans into one zero-padded [U, S] batch,
+    S and the lengths as `unit_lengths` gives them."""
+    lens, S = unit_lengths(bounds, max_len, bucket)
     out = np.zeros((len(bounds), S), np.float32)
     for i, (s, e) in enumerate(bounds):
         seg = audio[s:e][:S]
         out[i, : len(seg)] = seg
-    return out, np.asarray([min(l, S) for l in lens], np.int32)
+    return out, lens

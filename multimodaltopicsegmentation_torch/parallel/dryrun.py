@@ -18,7 +18,7 @@ line, `dryrun(N): mesh=... loss=... tp_mesh=... tp_loss=... seq_parallel=ok
 pipeline=ok expert=ok grid=ok multihost=ok ok`, and exits non-zero if any
 rank fails.
 
-`spawn_ranks` is the launcher that the tests and `chip_smoke.py` use too.
+`spawn_ranks` is the launcher that the tests use too.
 """
 from __future__ import annotations
 

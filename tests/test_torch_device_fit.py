@@ -58,9 +58,9 @@ def _cfg(**kw):
     return TaggerConfig(**base)
 
 
-def _fit(tmp_path, mode, arch, cfg, tb, vb, **kw):
+def _fit(tmp_path, mode, arch, cfg, tb, vb, device="cpu", **kw):
     """mode "host" or "device"; "env" leaves the choice to MTS_DEVICE_EPOCHS."""
-    tr = TLoop.Trainer(arch, cfg, check_dir=str(tmp_path / f"ck_{mode}"), device="cpu",
+    tr = TLoop.Trainer(arch, cfg, check_dir=str(tmp_path / f"ck_{mode}"), device=device,
                        device_epochs={"host": False, "device": True}.get(mode), **kw)
     params, hist = tr.fit(tb, vb)
     return tr, params, hist
@@ -153,6 +153,53 @@ def test_windows_match_host_loop_through_the_flash_entries(tmp_path, monkeypatch
     host, device = (_fit(tmp_path, mode, "Transformer", cfg, tb, vb, lr=3e-2, max_epochs=8,
                          patience=2) for mode in ("host", "device"))
     _assert_same_fit(host, device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,per_step", [("Transformer", (2, 2, 0, 2)),
+                                           ("RecurrentLongT5", (2, 0, 2, 2))])
+def test_cuda_windows_match_host_loop(tmp_path, monkeypatch, arch, per_step):
+    """On the card, with attention and layer dropout: the windows against the
+    host loop, as on the CPU (history to 1e-6, decisions, parameters), with
+    the same flash launches in both, (K2, K4, K5, K3) `per_step` a step and
+    2 K2 a validation pass; the Transformer's windows enqueue without a
+    synchronizing call (torch's sync debug mode "error" raises on one)."""
+    from multimodaltopicsegmentation_torch.ops import flash_attention as FA
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    monkeypatch.setenv("MTS_DEVICE_EPOCH_WINDOW", "3")
+    if arch == "Transformer":
+        make = device_fit.make_fit_window
+
+        def checked(*args, **kwargs):
+            fit_window = make(*args, **kwargs)
+
+            def run(*a):
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    return fit_window(*a)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+            return run
+
+        monkeypatch.setattr(device_fit, "make_fit_window", checked)
+    cfg = _cfg(hidden_dim=16, num_layers=2, nheads=2, attention_window=8)
+    tb = [_batch(s) for s in range(2)]
+    vb = [_batch(50)]
+    counters = (FA._flash_fwd, FA._flash_dq, FA._flash_dq_dbias, FA._flash_dkv)
+    runs, launches = [], []
+    for mode in ("host", "device"):
+        for c in counters:
+            c.launches = 0
+        runs.append(_fit(tmp_path, mode, arch, cfg, tb, vb, device="cuda", lr=3e-2,
+                         max_epochs=6, patience=20))
+        launches.append(tuple(c.launches for c in counters))
+    _assert_same_fit(*runs)
+    epochs = len(runs[1][2])
+    steps = epochs * len(tb)
+    want = tuple(steps * n for n in per_step)
+    assert launches[0] == launches[1] == (want[0] + epochs * len(vb) * 2,) + want[1:]
 
 
 def test_detect_anomaly_replay(tmp_path):

@@ -9,6 +9,7 @@ Trainer; `split_towers` / `join_towers` carry the JAX parameters.
 """
 import numpy as np
 import pytest
+import torch
 
 import jax
 import jax.numpy as jnp
@@ -101,3 +102,48 @@ def test_split_and_join_towers_carry_the_jax_parameters():
     dense = registry.build("SwitchBiLSTM", TaggerConfig(**{**CFG, "switch": "dense"}))
     with pytest.raises(ValueError, match="switch='lstm' towers"):
         EX._check(dense, None)
+
+
+@pytest.mark.cuda
+def test_cuda_two_ranks_on_one_card_match_one_rank(tmp_path):
+    """One tower a rank, both ranks sharing the card (gloo), against the
+    one-rank tagger and Trainer on it: logits, loss and the synced gradients
+    to 1e-4, each rank's own backward on its tower and the head only, the
+    expert Trainer's history (1e-5) and test scores."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    port = registry.build("SwitchBiLSTM", TaggerConfig(**CFG), torch.Generator().manual_seed(0))
+    x, tags = _inputs(0)
+    fx, ftags = _inputs(1, FIT_LENGTHS)
+    fit_batch = {"src_tokens": fx, "tgt_tokens": ftags, "src_lengths": FIT_LENGTHS,
+                 "domain": DOMAINS, "n_real": B}
+    (tmp_path / "ranks").mkdir()
+    out = str(tmp_path / "ranks")
+    W.spawn_on_one_card(W.expert_case, 2, (out, CFG, port.to_jax_params(), x, LENGTHS, tags,
+                                           DOMAINS, fit_batch), out)
+    dev = torch.device("cuda")
+    model = port.to(dev)
+    xs, ls, ts, ds = (torch.as_tensor(a).to(dev) for a in (x, LENGTHS, tags, DOMAINS))
+    logits = model.scores(xs, ls, ds).detach().cpu().numpy()
+    loss = model.loss(xs, ls, ts, ds)
+    loss.backward()
+    trainer = Trainer("SwitchBiLSTM", TaggerConfig(**CFG), lr=1e-3, max_epochs=3,
+                      check_dir=str(tmp_path / "one"), seed=0, device="cuda")
+    _, history = trainer.fit([fit_batch], [fit_batch])
+    test, _, _ = trainer.test(trainer.params, [fit_batch])
+    valid = np.arange(L)[None, :] < LENGTHS[:, None]
+    ranks = W.load(out, 2)
+    for r in ranks:
+        np.testing.assert_allclose(r["logits"][valid], logits[valid], atol=TOL, rtol=0)
+        assert r["loss"] == pytest.approx(loss.item(), abs=TOL)
+        for name, p in model.named_parameters():
+            np.testing.assert_allclose(r["grads"][name], p.grad.cpu().numpy(), atol=TOL, rtol=0,
+                                       err_msg=name)
+        assert r["expert"]
+        for a, b in zip(r["history"], history):
+            for key in ("training_loss", "val_loss"):
+                assert a[key] == pytest.approx(b[key], abs=1e-5)
+        assert r["test"] == test
+    for r, (mine, other) in zip(ranks, (("model_1", "model_2"), ("model_2", "model_1"))):
+        assert any(n.startswith(mine) for n in r["local"])
+        assert not any(n.startswith(other) for n in r["local"])

@@ -3,8 +3,9 @@ against the JAX package's, on the CPU, with the same weights.
 
 A two-wav corpus (8 and 12 s: sentence-like tones with gaps, JSON
 transcripts of 1.5-3 s sentences, a flat label file with about 30 %
-boundaries) runs through both training CLIs for every flag set that
-chip_smoke.py runs on the card, plus -cl, -aus, -cont and --BMAT. CREPE
+boundaries) runs through both training CLIs for every encoder and
+unitization flag set (the energy and the CRDNN VAD, -ust, -vd, each
+encoder), plus -cl, -aus, -cont and --BMAT. CREPE
 (some 10 ms of CPU per 10 ms frame) and OpenL3 (whose JAX chunks pad one
 window to 32) run on a 1.5 + 2.5 s corpus. Random-weight mode is patched so that both packages hold the JAX
 `*_init(PRNGKey(0))` weights (wav2vec2 at a tiny geometry whose layer-0 norm
@@ -172,7 +173,7 @@ def _same_outputs(jout, tout, frame_level, docs=("doc0", "doc1")):
             _close(g, w)
 
 
-# (argv, frame-level outputs, CRDNN VAD): the chip phase's eight runs and the extra flags
+# (argv, frame-level outputs, CRDNN VAD): the VADs, unitizations and encoders, and the extra flags
 CASES = {
     "vad_xvector": ([], False, False),
     "crdnn_vad_xvector": ([], False, True),

@@ -262,3 +262,100 @@ def test_weightless_encoder_matches_jax(monkeypatch, dim, frame_level):
     for g, w in zip(got, want):
         assert g.shape == w.shape == ((4, dim) if frame_level else (dim,))
         _close(np.asarray(g), np.asarray(w))
+
+
+# `engine.build_encoder`'s flag of each front-end encoder (none: the x-vector default)
+FRONT_ENDS = ["xvector", "ecapa", "openl3", "CREPE", "prosodic_feats", "mfcc", "wav2vec"]
+
+
+def _prosodic_states(audio, bounds, device):
+    """pYIN's voiced flags and f0 of the prosodic encoder's padded units, and
+    which frames lie inside a unit."""
+    from multimodaltopicsegmentation_torch.dsp.pyin import pyin
+    from multimodaltopicsegmentation_torch.encoders.engine_util import pad_units
+
+    units, lens = pad_units(audio, bounds, bucket=True)
+    f0, flag, _, _ = pyin(torch.from_numpy(units).to(device), SR, with_raw_yin=True)
+    valid = np.arange(flag.shape[1])[None, :] < (1 + lens[:, None] // 512)
+    return flag.cpu().numpy(), f0.cpu().numpy(), valid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flag", FRONT_ENDS)
+def test_cuda_front_end_encoder_matches_the_cpu(monkeypatch, flag):
+    """Each encoder `engine.build_encoder` selects, in random-weight mode, on
+    the card against the CPU over the ragged units of one document: within
+    1e-4 of the largest magnitude. wav2vec2's one chunk launches K1 once and
+    the 3xTF32 dense layer 4 x 12 + 1 times. Prosodic vectors: pYIN's state
+    may differ on under 1 % of the frames, and a unit where it does is
+    exempt in its six f0/pause/voicing columns and its pitch jump (which
+    divides by that unit's f0)."""
+    import argparse
+
+    from multimodaltopicsegmentation_torch.encoders.engine import build_encoder
+    from multimodaltopicsegmentation_torch.ops import instance_norm_gelu as K1
+    from multimodaltopicsegmentation_torch.ops import linear_tf32x3 as LIN
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    monkeypatch.setenv("MTS_RANDOM_ENCODER_WEIGHTS", "1")
+    for var in ("MTS_XVECTOR_WEIGHTS", "MTS_ECAPA_WEIGHTS", "MTS_OPENL3_WEIGHTS",
+                "MTS_OPENL3_WEIGHTS_MEL128", "MTS_CREPE_WEIGHTS", "MTS_WAV2VEC2_WEIGHTS"):
+        monkeypatch.delenv(var, raising=False)
+    args = argparse.Namespace(**({} if flag == "xvector" else {flag: True}))
+    audio = _audio(3.2, 2)
+    bounds = _bounds(len(audio))
+    K1.instance_norm_gelu.launches = LIN.linear_tf32x3.launches = 0
+    got, want = ([np.atleast_2d(u) for u in build_encoder(args, d).encode_document(audio, bounds)]
+                 for d in ("cuda", "cpu"))
+    assert len(got) == len(want) == len(bounds)
+    launches = (K1.instance_norm_gelu.launches, LIN.linear_tf32x3.launches)
+    assert launches == ((1, 4 * 12 + 1) if flag == "wav2vec" else (0, 0))
+    got, want = np.concatenate(got), np.concatenate(want)
+    if flag != "prosodic_feats":
+        _close(got, want)
+        return
+    (flag_c, f0_c, valid), (flag_h, f0_h, _) = (_prosodic_states(audio, bounds, d)
+                                                for d in ("cuda", "cpu"))
+    same_f0 = (f0_c == f0_h) | (np.isnan(f0_c) & np.isnan(f0_h))
+    differ = valid & ((flag_c != flag_h) | ~same_f0)
+    assert differ.sum() < 0.01 * valid.sum()
+    keep = np.ones(got.shape, bool)
+    keep[np.ix_(differ.any(axis=1), list(range(6)) + [166])] = False
+    assert got.shape == want.shape and np.isfinite(got).all()
+    np.testing.assert_allclose(got[keep], want[keep], atol=1e-4 * np.abs(want).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("vad", ["energy", "crdnn"])
+def test_cuda_vad_matches_the_cpu(tmp_path, monkeypatch, vad):
+    """The training extractor's VAD (`dsp.vad.get_speech_segments`) on the
+    card and on the CPU. Its posteriors: the energy logistic, or the random
+    CRDNN's, within 1e-5. Then its spans (the CRDNN's with the head scaled
+    by 300 and its bias set so that the document's median frame scores 0.5:
+    unscaled, every posterior sits within 0.01 of 0.5 and no span forms):
+    as many on both, their edges within one 10 ms frame."""
+    from multimodaltopicsegmentation_torch.dsp import vad as V
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    audio = _audio(6.0, 7)
+    monkeypatch.delenv("MTS_VAD_WEIGHTS", raising=False)
+    params = TV.random_params(torch.Generator().manual_seed(0))
+    if vad == "crdnn":
+        path = str(tmp_path / "vad.npz")
+        np.savez(path, **params)
+        monkeypatch.setenv("MTS_VAD_WEIGHTS", path)
+    got, want = (V.default_posteriors(audio, SR, d) for d in ("cuda", "cpu"))
+    assert got.shape == want.shape and np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, atol=1e-5)
+    if vad == "crdnn":
+        params["out_w"] = params["out_w"] * 300.0
+        median = float(np.median(TV.posteriors(TV.build(params, "cpu"), audio, SR)))
+        params["out_b"] = (params["out_b"] - np.log(median / (1.0 - median))).astype(np.float32)
+        np.savez(str(tmp_path / "vad_scaled.npz"), **params)
+        monkeypatch.setenv("MTS_VAD_WEIGHTS", str(tmp_path / "vad_scaled.npz"))
+    spans = [V.get_speech_segments(audio, SR, device=d) for d in ("cuda", "cpu")]
+    assert len(spans[0]) == len(spans[1]) > 0
+    for a, b in zip(*spans):
+        assert abs(a[0] - b[0]) <= 0.01 + 1e-9 and abs(a[1] - b[1]) <= 0.01 + 1e-9

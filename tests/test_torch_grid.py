@@ -56,16 +56,16 @@ def _cfg(**kw):
     return TaggerConfig(**base)
 
 
-def _serial(tmp_path, arch, cfg, g, train, valid, **kw):
+def _serial(tmp_path, arch, cfg, g, train, valid, device="cpu", **kw):
     din, dout = GRID[g]
     t = TLoop.Trainer(arch, dataclasses.replace(cfg, dropout_in=din, dropout_out=dout),
-                      check_dir=str(tmp_path / f"serial{g}"), seed=42, device="cpu", **kw)
+                      check_dir=str(tmp_path / f"serial{g}"), seed=42, device=device, **kw)
     params, _ = t.fit(train, valid)
     return t, params
 
 
-def _grid(tmp_path, arch, cfg, train, valid, grid=GRID, **kw):
-    gt = GridTrainer(arch, cfg, grid, check_dir=str(tmp_path / "grid"), seed=42, device="cpu",
+def _grid(tmp_path, arch, cfg, train, valid, grid=GRID, device="cpu", **kw):
+    gt = GridTrainer(arch, cfg, grid, check_dir=str(tmp_path / "grid"), seed=42, device=device,
                      **kw)
     gt.fit(train, valid)
     return gt
@@ -101,6 +101,25 @@ def test_grid_matches_serial_runs_at_nonzero_dropout(tmp_path, arch, dim2):
         pg, cfg_g, arch_g, _ = ckpt.load(gt.best_model_paths[g])
         assert (cfg_g.dropout_in, cfg_g.dropout_out, arch_g) == (din, dout, arch)
         _assert_same_weights(pg, ckpt.load(st.best_model_path)[0])
+
+
+@pytest.mark.cuda
+def test_cuda_grid_matches_serial_runs(tmp_path):
+    """On the card (cuDNN's LSTM), at nonzero dropout: each configuration of
+    the grid against its serial `Trainer` run there, as on the CPU: history
+    to 1e-6, the same snapshot names and weights."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    train, valid = _batches(0), _batches(1, n=1)
+    cfg = _cfg()
+    kw = dict(lr=1e-2, max_epochs=4, patience=2, device="cuda")
+    gt = _grid(tmp_path, "BiLSTM", cfg, train, valid, **kw)
+    for g in range(len(GRID)):
+        st, _ = _serial(tmp_path, "BiLSTM", cfg, g, train, valid, **kw)
+        _assert_history(gt.histories[g], st.history, ATOL)
+        assert os.path.basename(gt.best_model_paths[g]) == os.path.basename(st.best_model_path)
+        _assert_same_weights(ckpt.load(gt.best_model_paths[g])[0],
+                             ckpt.load(st.best_model_path)[0])
 
 
 def test_grid_early_stop_freezes_a_configuration(tmp_path):

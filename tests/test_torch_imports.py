@@ -52,16 +52,21 @@ def test_port_modules_import_no_jax():
 
 
 def test_chip_smoke_imports_only_torch_numpy_and_the_port():
-    with open(os.path.join(ROOT, "chip_smoke.py")) as f:
-        tree = ast.parse(f.read())
-    roots = set()
-    for node in ast.walk(tree):
-        if isinstance(node, ast.Import):
-            roots.update(a.name.split(".")[0] for a in node.names)
-        elif isinstance(node, ast.ImportFrom) and node.level == 0:
-            roots.add(node.module.split(".")[0])
-    assert not roots & {"jax", "jaxlib", "multimodaltopicsegmentation_tpu"}
-    assert "multimodaltopicsegmentation_torch" in roots
+    """Besides the standard library: torch, the port and the benchmark's
+    floors (mtsbench.roofline, which imports numpy only)."""
+    roots = {}
+    for path in ("chip_smoke.py", os.path.join("benchmark", "mtsbench", "roofline.py")):
+        with open(os.path.join(ROOT, path)) as f:
+            tree = ast.parse(f.read())
+        roots[path] = set()
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                roots[path].update(a.name.split(".")[0] for a in node.names)
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                roots[path].add(node.module.split(".")[0])
+        roots[path] -= set(sys.stdlib_module_names)
+    assert roots["chip_smoke.py"] == {"torch", "multimodaltopicsegmentation_torch", "mtsbench"}
+    assert roots[os.path.join("benchmark", "mtsbench", "roofline.py")] == {"numpy"}
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):
@@ -91,7 +96,6 @@ def test_two_spawned_ranks_share_one_card(tmp_path):
     import torch_dist_workers as W
     from multimodaltopicsegmentation_torch.models.base import TaggerConfig
     from multimodaltopicsegmentation_torch.models import registry
-    from multimodaltopicsegmentation_torch.parallel.dryrun import spawn_ranks
 
     cfg = dict(embedding_dim=64, hidden_dim=32, num_layers=2, nheads=4, attention_window=16,
                loss_fn="FocalLoss")
@@ -102,18 +106,8 @@ def test_two_spawned_ranks_share_one_card(tmp_path):
     x = rng.standard_normal((4, 256, 64)).astype(np.float32)
     tags = (rng.random((4, 256)) < 0.1).astype(np.float32)
     tags[np.arange(256)[None, :] >= lengths[:, None]] = -1.0
-    env = dict(CUDA_VISIBLE_DEVICES=os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0])
-    old = {k: os.environ.get(k) for k in env}
-    os.environ.update(env)
-    try:
-        spawn_ranks(W.card_case, 2, (str(tmp_path), cfg, params, x, lengths, tags), "cuda",
-                    timeout=600, store_dir=str(tmp_path))
-    finally:
-        for k, v in old.items():
-            if v is None:
-                os.environ.pop(k)
-            else:
-                os.environ[k] = v
+    W.spawn_on_one_card(W.card_case, 2, (str(tmp_path), cfg, params, x, lengths, tags),
+                        str(tmp_path))
     dev = torch.device("cuda")
     model = model.to(dev)
     xs, ls, ts = (torch.as_tensor(a).to(dev) for a in (x, lengths, tags))

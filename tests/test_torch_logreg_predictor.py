@@ -6,13 +6,14 @@ of the decision boundary included; a model fitted on float32 data away from
 its boundary; the refusal of any other global; `LogReg_Predictor` and the
 CLI against the JAX package's (results.pkl and segment wavs equal).
 
-tests/data/logreg_prosodic_167.pkl is the model `chip_smoke.py` serves: a
-`LogisticRegression(max_iter=5000, class_weight="balanced")` fitted with
-sklearn 1.9 on the 167
-prosodic features (as float64) of 80 one-second units (the port's extractor
-on the CPU over `chip_smoke.write_speech_corpus(root, (40.0, 40.0),
-seed=11)`), labelled 1 where a seeded random projection of the standardized
-features exceeds its 85th percentile."""
+tests/data/logreg_prosodic_167.pkl is the model these tests serve (on the
+card too): a `LogisticRegression(max_iter=5000, class_weight="balanced")`
+fitted with sklearn 1.9 on the 167 prosodic features (as float64) of 80
+one-second units (the port's extractor on the CPU over two synthetic 40-s
+broadcasts, seed 11: sentences of 2-12 s, a carrier tone per topic with
+vibrato and 0.2-0.6 s of near-silence after each sentence), labelled 1
+where a seeded random projection of the standardized features exceeds its
+85th percentile."""
 import os
 import pickle
 from pathlib import Path
@@ -187,3 +188,22 @@ def test_lgr_on_cuda_without_a_card_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         PP.cli_main(["-lgr", "-ef", "unused", "-model", FIXTURE, "-exp", "unused"])
+
+
+@pytest.mark.cuda
+def test_cuda_lgr_ee_on_the_card_classifies_as_the_cpu(tmp_path):
+    """predict -lgr -ee on the card (the prosodic features extracted there,
+    the pickled LogisticRegression applied there), then -lgr on the CPU over
+    the features the card wrote: the same results.pkl and segment wavs. (Card
+    and CPU prosodic features differ where pYIN's states do, so each device
+    classifies the same features.)"""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    _, audio_dir = _corpus(tmp_path, 167, n_docs=3, seed=1)
+    common = ["-lgr", "-model", FIXTURE, "-af", audio_dir, "-ef", str(tmp_path / "card_emb"),
+              "-ui", "1.0"]
+    got = PP.cli_main(common + ["-ee", "-exp", str(tmp_path / "card"), "--device", "cuda"])
+    PP.cli_main(common + ["-exp", str(tmp_path / "cpu"), "--device", "cpu"])
+    want = _outputs(str(tmp_path / "cpu"))
+    assert _outputs(str(tmp_path / "card")) == want and got == want[0]
+    assert [len(want[0][f"doc{d}.npy"]) for d in range(3)] == [8, 11, 14]

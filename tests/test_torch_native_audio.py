@@ -10,10 +10,12 @@ JAX's error without it; a failed build raises with the compiler's log."""
 import os
 import struct
 import sys
+from math import gcd
 
 import numpy as np
 import pytest
 from scipy.io import wavfile
+from scipy.signal import upfirdn
 
 from multimodaltopicsegmentation_tpu.runtime import audio_native as J
 from multimodaltopicsegmentation_tpu.utils import audio as JA
@@ -215,6 +217,28 @@ def test_library_name_carries_source_flags_and_target():
     assert "-march=" in cuda_build._march_native()
 
 
+def test_first_loads_on_two_threads_build_once(tmp_path, monkeypatch):
+    """`prefetch_audio` reads its first documents on two threads, so the first
+    two calls for a library not built yet arrive together: both get the one
+    library, built once."""
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(cuda_build, "_loaded", {})
+    together = threading.Barrier(2)
+
+    def first_load(_):
+        together.wait()
+        return cuda_build.load("audio_native")
+
+    with ThreadPoolExecutor(2) as pool:
+        libs = list(pool.map(first_load, range(2)))
+    assert libs[0] is libs[1]
+    assert [p.name for p in (tmp_path / "build").iterdir()] == \
+        [cuda_build.library_path("audio_native").name]
+
+
 def test_build_without_openmp_gives_the_same_bits(tmp_path, monkeypatch):
     """A compiler without the OpenMP runtime builds the loader without
     -fopenmp: one thread, another library name, the same samples."""
@@ -239,15 +263,37 @@ def test_build_without_openmp_gives_the_same_bits(tmp_path, monkeypatch):
     assert P.resample(x, 44100, 16000).tobytes() == J.resample(x, 44100, 16000).tobytes()
 
 
+def native_resample_plain(x, sr_in, sr_out):
+    """The native loader's resampler in float64 numpy: its Kaiser-windowed
+    sinc (beta 8, cutoff 0.95 of the lower Nyquist, 32 zero crossings a
+    side, I0 by its 32-term series) through scipy's upfirdn. For a
+    downsampling ratio the filter's half length is a multiple of `down`, so
+    output m is upfirdn's m + half / down."""
+    g = gcd(sr_in, sr_out)
+    up, down = sr_out // g, sr_in // g
+    if down < up:
+        raise ValueError("native_resample_plain covers downsampling only")
+    half, cutoff = 32 * down, 0.95 * 0.5 / down
+    k = 2.0 * np.arange(1, 32)
+
+    def i0(v):
+        return 1.0 + np.cumprod((v[:, None] / k) ** 2, axis=1).sum(axis=1)
+
+    n = np.arange(-half, half + 1, dtype=np.float64)
+    sinc = np.where(n == 0, 2 * cutoff, np.sin(2 * np.pi * cutoff * n) / (np.pi * np.where(n == 0, 1, n)))
+    window = i0(8.0 * np.sqrt(np.maximum(0.0, 1.0 - (n / half) ** 2))) / i0(np.array([8.0]))
+    n_out = len(x) * up // down
+    y = upfirdn(sinc * window * up, np.asarray(x, np.float64), up, down)
+    return y[half // down : half // down + n_out]
+
+
 @pytest.mark.parametrize("sr_in", [44100, 22050, 48000])
 def test_resample_equals_chip_smokes_plain_version(sr_in):
-    """chip_smoke.py holds the loader's resampler on the card to this float64
-    plain version (Kaiser-windowed sinc through scipy's upfirdn)."""
-    import chip_smoke
-
+    """The loader's resampler against its float64 plain version
+    (Kaiser-windowed sinc through scipy's upfirdn)."""
     x = _signal(sr_in, 0.6, 1, seed=9).astype(np.float32)
     got = P.resample(x, sr_in, 16000)
-    plain = chip_smoke.native_resample_plain(x, sr_in, 16000)
+    plain = native_resample_plain(x, sr_in, 16000)
     assert len(got) == len(plain) and np.abs(got - plain).max() < 1e-6
 
 

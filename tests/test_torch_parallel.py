@@ -324,3 +324,96 @@ def test_a_failing_rank_fails_the_launch(tmp_path):
     with pytest.raises(torch.multiprocessing.ProcessRaisedException, match="no_such_cli"):
         spawn_ranks(W.run_cli, 2, ("multimodaltopicsegmentation_torch.cli.no_such_cli", [],
                                    str(tmp_path)), "cpu", timeout=120, store_dir=str(tmp_path))
+
+
+# the data-parallel cases on the card: BiLSTM (cuDNN) and the Transformer (K2, K4, K3)
+CARD_CASES = {"bilstm_focal": CASES["bilstm_focal"],
+              "transformer": ("Transformer", dict(loss_fn="FocalLoss", nheads=4,
+                                                  attention_window=4), "")}
+
+
+@pytest.mark.cuda
+def test_cuda_two_ranks_on_one_card_match_one_rank(tmp_path):
+    """Two ranks sharing the card (gloo) against one rank on it: the
+    data-parallel Adam steps (losses to 1e-5, first-step gradients and
+    parameters to 1e-4, the Transformer's 2 K2, 2 K4 and 2 K3 a step on each
+    rank), `GridTrainer(mesh)` against the serial grid, and the predict CLI
+    under torchrun (each rank joins by env://) against one process: the same
+    results.pkl (one process's 2 chunks of the 2-layer Transformer launch 4
+    K2)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from multimodaltopicsegmentation_torch.cli.predict import cli_main as predict
+    from multimodaltopicsegmentation_torch.ops import flash_attention as FA
+    from multimodaltopicsegmentation_torch.train import checkpoints as ckpt
+    from multimodaltopicsegmentation_torch.train.grid import GridTrainer
+
+    batch = _batch()
+    cases = []
+    for name, (arch, fields, extra) in CARD_CASES.items():
+        cfg = _cfg(fields)
+        params = registry.build(arch, TaggerConfig(**cfg),
+                                torch.Generator().manual_seed(0)).to_jax_params()
+        cases.append((name, arch, cfg, params, batch, STEPS, LR, extra))
+    runs = {}
+    for n in (1, 2):
+        out = tmp_path / f"dp{n}"
+        out.mkdir()
+        W.spawn_on_one_card(W.dp_steps, n, (str(out), cases), str(out))
+        runs[n] = W.load(str(out), n)
+    (one,) = runs[1]
+    for rank in runs[2]:
+        for name in CARD_CASES:
+            losses, params, first = rank[name]
+            np.testing.assert_allclose(losses, one[name][0], atol=LOSS_TOL, rtol=0)
+            _close(params, one[name][1], PARAM_TOL)
+            _close(first, one[name][2], PARAM_TOL)
+        assert rank["launches"] == {"bilstm_focal": (0, 0, 0, 0),
+                                    "transformer": (2 * STEPS, 2 * STEPS, 0, 2 * STEPS)}
+
+    cfg = dict(embedding_dim=12, hidden_dim=8, num_layers=1, loss_fn="FocalLoss")
+    grid = [(0.0, 0.0), (0.2, 0.5), (0.5, 0.2)]
+    rng = np.random.default_rng(3)
+    batches = [{"src_tokens": rng.standard_normal((3, 12, 12)).astype(np.float32),
+                "tgt_tokens": (rng.random((3, 12)) < 0.2).astype(np.float32),
+                "src_lengths": np.asarray([12, 9, 7], np.int32), "n_real": 3}]
+    kw = dict(lr=1e-3, max_epochs=3, seed=0, check_dir=str(tmp_path / "ranks"))
+    W.spawn_on_one_card(W.grid_fit, 2, (str(tmp_path), cfg, grid, batches, kw), str(tmp_path))
+    kw["check_dir"] = str(tmp_path / "serial")
+    gt = GridTrainer("BiLSTM", TaggerConfig(**cfg), grid, device="cuda", **kw)
+    finals, histories = gt.fit(batches, batches)
+    for got_finals, got_histories, paths, _ in W.load(str(tmp_path), 2):
+        for got, want in zip(got_histories, histories):
+            for key in ("training_loss", "val_loss"):
+                np.testing.assert_allclose([h[key] for h in got], [h[key] for h in want],
+                                           atol=LOSS_TOL, rtol=0)
+        assert [os.path.basename(p) for p in paths] == [
+            os.path.basename(p) for p in gt.best_model_paths]
+        _close(got_finals, finals, PARAM_TOL)
+
+    emb = tmp_path / "emb"
+    emb.mkdir()
+    for d, n in enumerate((70, 9, 130, 33, 51)):  # 5 documents: chunks of 2 pad to 2 ranks
+        np.save(emb / f"doc{d}.npy", rng.standard_normal((n, 32)).astype(np.float32))
+    cfg = TaggerConfig(embedding_dim=32, hidden_dim=32, num_layers=2, nheads=4,
+                       attention_window=8, loss_fn="FocalLoss")
+    params = registry.build("Transformer", cfg, torch.Generator().manual_seed(1)).to_jax_params()
+    params["cls"]["w"] = params["cls"]["w"] * 20.0  # sharper logits: some units above 0.5
+    model = str(tmp_path / "ckpt" / "best_model")
+    ckpt.save(model, params, cfg, "Transformer")
+    hyp = tmp_path / "results.txt"
+    hyp.write_text("Sentence encoder: wav2vec_mean\nNeural architecture: Transformer\n")
+    common = ["-ef", str(emb), "-hyp", str(hyp), "-model", model, "-bs", "3", "-rjs",
+              "--device", "cuda"]
+    out = W.torchrun_on_one_card("multimodaltopicsegmentation_torch.cli.predict",
+                                 common + ["-exp", str(tmp_path / "ranks_exp")])
+    assert out.count("backend gloo") == 2
+    FA._flash_fwd.launches = 0
+    predict(common + ["-exp", str(tmp_path / "one_exp")])
+    assert FA._flash_fwd.launches == 4
+    results = []
+    for exp in ("ranks_exp", "one_exp"):
+        with open(tmp_path / exp / "results.pkl", "rb") as f:
+            results.append(pickle.load(f))
+    assert results[0] == results[1]
+    assert 0 < sum(map(sum, results[1].values())) < 293

@@ -109,17 +109,17 @@ def _port_sd(architecture, **kw):
                           torch.Generator().manual_seed(0)).state_dict()
 
 
-def _transformer(longformer):
+def _transformer(longformer, dim=D):
     """HF Longformer (position ids from padding_idx + 1 = 2, one token type,
     global projections) or BertModel names for TransformerSegmenter."""
-    sd = _port_sd("Transformer", nheads=8, attention_window=120)
+    sd = _port_sd("Transformer", nheads=8, attention_window=120, embedding_dim=dim)
     out = {}
     for k, v in sd.items():
         if k.endswith("embeddings.position_table"):
             rows = v.shape[0] + (2 if longformer else 0)
-            out["model.model.embeddings.position_embeddings.weight"] = torch.zeros(rows, D)
+            out["model.model.embeddings.position_embeddings.weight"] = torch.zeros(rows, dim)
             out["model.model.embeddings.token_type_embeddings.weight"] = \
-                torch.zeros(1 if longformer else 2, D)
+                torch.zeros(1 if longformer else 2, dim)
             continue
         out[k] = v
         if longformer and k.endswith("attention.self.query.weight"):
@@ -318,12 +318,13 @@ def _one_jax_device(monkeypatch):
     monkeypatch.setattr(jax, "devices", lambda *a: devices(*a)[:1])
 
 
-@pytest.mark.parametrize("case", ["BiLSTM-BCE", "Transformer-Longformer"])
-def test_predict_serves_reference_checkpoint_as_jax(tmp_path, monkeypatch, case):
-    _one_jax_device(monkeypatch)
-    _, make, architecture = CASES[IDS.index(case)]
+def _served_reference(tmp_path, sd, architecture, dim=D):
+    """A reference-layout checkpoint of `sd` (redrawn), its results.txt and
+    five [n, dim] embedding files, the head's bias set so that the first
+    file's median unit scores 0.5 (random heads score one side of it).
+    -> predict's arguments for them."""
     ckpt = str(tmp_path / "best_model")
-    sd = _lightning(make(), seed=31, path=ckpt)
+    sd = _lightning(sd, seed=31, path=ckpt)
     hyp = tmp_path / "results.txt"
     hyp.write_text(f"Sentence encoder: CNN\nNeural architecture: {architecture}\n"
                    f"Hidden units: {H}\nNumber of layers: 2\n")
@@ -331,8 +332,7 @@ def test_predict_serves_reference_checkpoint_as_jax(tmp_path, monkeypatch, case)
     emb.mkdir()
     rng = np.random.default_rng(32)
     for d, n in enumerate((40, 23, 9, 31, 5)):
-        np.save(emb / f"doc{d}.npy", rng.standard_normal((n, D)).astype(np.float32))
-    # random heads score one side of 0.5: centre the logits on the first document
+        np.save(emb / f"doc{d}.npy", rng.standard_normal((n, dim)).astype(np.float32))
     params, cfg, name = PC.convert_state_dict(sd)
     tagger = registry.build(name, cfg)
     tagger.load_state_dict(type(tagger).from_jax_params(params))
@@ -340,7 +340,14 @@ def test_predict_serves_reference_checkpoint_as_jax(tmp_path, monkeypatch, case)
     with torch.no_grad():
         sd["model.classification.bias"] -= tagger.eval().scores(x, torch.tensor([40])).median()
     torch.save({"state_dict": sd, "hyper_parameters": {}}, ckpt)
-    common = ["-ef", str(emb), "-hyp", str(hyp), "-model", ckpt, "-bs", "4", "-rjs", "-th", "0.5"]
+    return ["-ef", str(emb), "-hyp", str(hyp), "-model", ckpt, "-bs", "4", "-rjs", "-th", "0.5"]
+
+
+@pytest.mark.parametrize("case", ["BiLSTM-BCE", "Transformer-Longformer"])
+def test_predict_serves_reference_checkpoint_as_jax(tmp_path, monkeypatch, case):
+    _one_jax_device(monkeypatch)
+    _, make, architecture = CASES[IDS.index(case)]
+    common = _served_reference(tmp_path, make(), architecture)
     JP.cli_main(common + ["-exp", str(tmp_path / "jax")])
     got = PP.cli_main(common + ["-exp", str(tmp_path / "port"), "--device", "cpu"])
     results = []
@@ -349,6 +356,34 @@ def test_predict_serves_reference_checkpoint_as_jax(tmp_path, monkeypatch, case)
             results.append(pickle.load(f))
     assert results[1] == results[0]
     assert got == [results[0][f"doc{d}.npy"] for d in range(5)]
+    assert 0 < sum(map(sum, got)) < sum(map(len, got))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,make,k2", [
+    ("BiLSTM-BCE", lambda: RefBiLSTM(out=1).state_dict(), 0),
+    # 8 heads of 64 / 8 = 8 dims: the flash kernel takes head dims in multiples of 4
+    ("Transformer-Longformer", lambda: _transformer(True, dim=64), 4)])
+def test_cuda_predict_serves_reference_checkpoint_as_the_cpu(tmp_path, case, make, k2):
+    """A reference-layout checkpoint through predict's converter fallback on
+    the card: the results.pkl of the CPU; the Transformer's two layers over
+    the two chunks of -bs 4 launch K2 4 times."""
+    from multimodaltopicsegmentation_torch.ops import flash_attention as FA
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    architecture = case.split("-")[0]
+    common = _served_reference(tmp_path, make(), architecture,
+                               64 if architecture == "Transformer" else D)
+    FA._flash_fwd.launches = 0
+    got = PP.cli_main(common + ["-exp", str(tmp_path / "card"), "--device", "cuda"])
+    assert FA._flash_fwd.launches == k2
+    want = PP.cli_main(common + ["-exp", str(tmp_path / "cpu"), "--device", "cpu"])
+    results = []
+    for exp in ("card", "cpu"):
+        with open(tmp_path / exp / "results.pkl", "rb") as f:
+            results.append(pickle.load(f))
+    assert results[0] == results[1] and got == want
     assert 0 < sum(map(sum, got)) < sum(map(len, got))
 
 

@@ -125,6 +125,38 @@ def test_train_cli_sequence_shards_writes_the_one_process_results(tmp_path, monk
         np.testing.assert_allclose(g, w, atol=TOL, rtol=0)
 
 
+@pytest.mark.cuda
+def test_cuda_train_cli_sequence_shards_under_torchrun_writes_the_one_process_results(tmp_path):
+    """`train_fit -sqs 2` under torchrun, two ranks sharing the card (each
+    joins by env://, backend gloo), against the one-process CLI on the card:
+    the same results.txt and a best checkpoint within 1e-4."""
+    from multimodaltopicsegmentation_torch.cli import train_fit
+    from multimodaltopicsegmentation_torch.train import checkpoints as ckpt
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    # ecapa's 192 dims: 2 heads of 96, a head dim the flash kernel takes
+    emb_dir, lab_file, split = make_synthetic_corpus(str(tmp_path / "corpus"), n_docs=6, dim=192)
+    argv = ["-arc", "Transformer", "-enc", "ecapa", "-ef", emb_dir, "-lf", lab_file, "-split",
+            split, "-nl", "2", "-nh", "2", "-window", "4", "-hu", "16", "-bs", "3", "-max", "2",
+            "-lr", "1e-3", "-loss", "FocalLoss", "--device", "cuda"]
+    out = W.torchrun_on_one_card("multimodaltopicsegmentation_torch.cli.train_fit",
+                                 argv + ["-exp", str(tmp_path / "sharded"), "-sqs", "2"])
+    assert out.count("backend gloo") == 2
+    cwd = os.getcwd()
+    try:
+        train_fit.cli_main(argv + ["-exp", str(tmp_path / "one")])
+    finally:
+        os.chdir(cwd)
+    texts = [[ln for ln in open(tmp_path / e / "results.txt").read().splitlines()
+              if not ln.startswith("Results for experiment")] for e in ("sharded", "one")]
+    assert texts[0] == texts[1] and any(ln.startswith("Mean Pk obtained is") for ln in texts[0])
+    got, want = (ckpt.load(str(tmp_path / e / "checkpoints" / "best_model"))[0]
+                 for e in ("sharded", "one"))
+    for g, w in zip(jax.tree.leaves(got), jax.tree.leaves(want)):
+        np.testing.assert_allclose(g, w, atol=TOL, rtol=0)
+
+
 def test_halo_checks():
     from multimodaltopicsegmentation_torch.parallel import sequence as SQ
 
@@ -140,3 +172,48 @@ def test_halo_checks():
     assert m.sum(1).tolist() == [40, 0, 0]
     m = SQ._extended_mask(torch.tensor([64, 20]), 0, 0, 40, torch.float32)
     assert m.sum(1).tolist() == [40, 20]
+
+
+@pytest.mark.cuda
+def test_cuda_two_ranks_on_one_card_match_one_rank(tmp_path):
+    """Two ranks sharing the card (gloo, the halos staged through the host)
+    against the one-rank tagger and Trainer on it: the logits on valid
+    units, the loss and its gradients to 1e-4, each rank's flash launches for
+    the decode and the loss (4 K2, 2 K4, 2 K3: one a layer), and
+    `Trainer(sequence_shards=2)`'s history (1e-5), test scores and tags."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    port = registry.build("Transformer", TaggerConfig(**CFG), torch.Generator().manual_seed(0))
+    x, tags = _inputs()
+    fit_x, fit_tags = _inputs(1)
+    fit_batch = {"src_tokens": fit_x[:, :61], "tgt_tokens": fit_tags[:, :61],
+                 "src_lengths": np.minimum(LENGTHS, 61), "n_real": B}
+    out = str(tmp_path / "ranks")
+    os.makedirs(out)
+    W.spawn_on_one_card(W.sequence_case, 2, (out, CFG, port.to_jax_params(), x, LENGTHS, tags,
+                                             True, fit_batch), out)
+    dev = torch.device("cuda")
+    model = port.to(dev)
+    xs, ls, ts = (torch.as_tensor(a).to(dev) for a in (x, LENGTHS, tags))
+    logits = model.scores(xs, ls).detach().cpu().numpy()
+    loss = model.loss(xs, ls, ts)
+    loss.backward()
+    trainer = Trainer("Transformer", TaggerConfig(**CFG), lr=1e-3, max_epochs=3,
+                      check_dir=str(tmp_path / "one"), seed=0, device="cuda")
+    _, history = trainer.fit([fit_batch], [fit_batch])
+    test, _, scores = trainer.test(trainer.params, [fit_batch])
+    valid = np.arange(L)[None, :] < LENGTHS[:, None]
+    for r in W.load(out, 2):
+        np.testing.assert_allclose(r["logits"][valid], logits[valid], atol=TOL, rtol=0)
+        assert r["loss"] == pytest.approx(loss.item(), abs=TOL)
+        for name, p in model.named_parameters():
+            np.testing.assert_allclose(r["grads"][name], p.grad.cpu().numpy(), atol=TOL, rtol=0,
+                                       err_msg=name)
+        assert r["launches"] == (4, 2, 0, 2) and r["halo_bytes"] > 0
+        for a, b in zip(r["history"], history):
+            assert a["epoch"] == b["epoch"]
+            for key in ("training_loss", "val_loss"):
+                assert a[key] == pytest.approx(b[key], abs=1e-5)
+        assert r["test"] == test
+        for a, b in zip(r["scores"], scores):
+            np.testing.assert_allclose(a, b, atol=TOL, rtol=0)

@@ -367,3 +367,72 @@ def test_dryrun_at_four_ranks_runs_model_parallel_two():
     assert line.startswith("dryrun(4): mesh={'data': 4, 'model': 1} loss=")
     assert "tp_mesh={'data': 2, 'model': 2} tp_loss=" in line
     assert line.endswith("seq_parallel=ok pipeline=ok expert=ok grid=ok multihost=ok ok")
+
+
+# the tensor-parallel cases on the card: cuDNN's place taken by the sharded
+# recurrence, and the flash layers without and with T5's bias (K4 or K5)
+CARD_CASES = {"lstm_bi_focal": (0, 0, 0, 0), "transformer": (2, 2, 0, 2),
+              "recurrent_longt5": (2, 0, 2, 2)}  # flash launches a step: K2, K4, K5, K3
+
+
+@pytest.mark.cuda
+def test_cuda_two_ranks_on_one_card_match_one_rank(tmp_path):
+    """A (data 1, model 2) mesh of two ranks sharing the card (gloo) against
+    one rank on it: the Adam steps against one rank's data-parallel steps
+    (losses to 1e-5, first-step gradients and parameters to 1e-4, the same
+    flash launches), the sharded Transformer decode (scores to 1e-5, the
+    same tags) and `Trainer(mesh)` with dropout 0.1 (history to 1e-5,
+    parameters, test)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    batch = _batch()
+    cases = []
+    for name in CARD_CASES:
+        arch, fields, extra, clip = CASES[name]
+        params = registry.build(arch, TaggerConfig(**_cfg(fields)),
+                                torch.Generator().manual_seed(0)).to_jax_params()
+        cases.append((name, (arch, _cfg(fields), params, batch, STEPS, LR, extra, clip)))
+    arch, fields = DECODES["transformer"]
+    decode_params = registry.build(arch, TaggerConfig(**_cfg(fields)),
+                                   torch.Generator().manual_seed(1)).to_jax_params()
+    decode_params["cls"]["w"] = decode_params["cls"]["w"] * 20.0
+    t_arch, t_fields, kw = TRAINER
+    runs = {}
+    for m in (1, 2):
+        plan = {"decode": {"transformer": (m, arch, _cfg(fields), decode_params, batch)},
+                "trainer": (m, t_arch, _cfg(t_fields), kw, [batch, _batch(1)], [VALID])}
+        if m == 2:
+            plan["steps"] = {"card": (m, cases)}
+        out = tmp_path / f"m{m}"
+        out.mkdir()
+        W.spawn_on_one_card(W.tp_rank, m, (str(out), plan), str(out))
+        runs[m] = W.load(str(out), m)
+    out = tmp_path / "dp1"
+    out.mkdir()
+    W.spawn_on_one_card(W.dp_steps, 1, (str(out), [(name, *case[:7]) for name, case in cases]),
+                        str(out))
+    (steps,) = W.load(str(out), 1)
+    (one,) = runs[1]
+    for rank in runs[2]:
+        assert rank["steps"]["card"]["shape"] == {"data": 1, "model": 2}
+        for name, per_step in CARD_CASES.items():
+            got = rank["steps"]["card"]["cases"][name]
+            losses, params, first = steps[name]
+            np.testing.assert_allclose(got["losses"], losses, atol=LOSS_TOL, rtol=0)
+            assert sorted(got["first"]) == sorted(first)
+            for k, g in first.items():
+                np.testing.assert_allclose(got["first"][k], g, atol=PARAM_TOL, rtol=0, err_msg=k)
+            _close(got["params"], params, PARAM_TOL)
+            assert got["launches"] == steps["launches"][name] == tuple(STEPS * n
+                                                                       for n in per_step)
+        scores, tags = rank["decode"]["transformer"]
+        want_scores, want_tags = one["decode"]["transformer"]
+        assert 0 < want_tags.sum() < want_tags.size
+        np.testing.assert_array_equal(tags, want_tags)
+        np.testing.assert_allclose(scores, want_scores, atol=LOSS_TOL, rtol=0)
+        got, want = rank["trainer"], one["trainer"]
+        for k in ("training_loss", "val_loss"):
+            np.testing.assert_allclose([h[k] for h in got["history"]],
+                                       [h[k] for h in want["history"]], atol=LOSS_TOL, rtol=0)
+        _close(got["params"], want["params"], PARAM_TOL)
+        assert got["test"] == want["test"]

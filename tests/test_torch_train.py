@@ -667,6 +667,73 @@ def test_train_cli_defaults_to_cuda_and_refuses_unported_flags(tmp_path):
     assert arch == "BiLSTMLateFusion" and (cfg.embedding_dim, cfg.embedding_dim2) == (30, 30)
 
 
+GRID_FLAGS = ["-hs", "-huss", "8", "-nlss", "1", "-diss", "0.0", "0.3", "-doss", "0.0", "0.2"]
+TRANSFORMER_FLAGS = ["-arc", "Transformer", "-hu", "16", "-nl", "2", "-nh", "2", "-window", "8"]
+# id: (train_fit flags, how the experiment is served after: "predict", "infer" or nothing)
+CARD_CLI = {"transformer": (TRANSFORMER_FLAGS + ["-sth"], "predict"),
+            "device_epochs": (TRANSFORMER_FLAGS + ["-de"], "predict"),
+            "crf": (["-arc", "biLSTMCRF", "-hu", "8"], "predict"),
+            "grid": (["-arc", "BiLSTM", "-s_last", "-pg"] + GRID_FLAGS, "infer"),
+            "pca": (["-arc", "BiLSTM", "-hu", "8", "-pca", "-pca_v", "6"], None)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(CARD_CLI))
+def test_cuda_train_cli_then_predict_on_its_checkpoint(tmp_path, name):
+    """train_fit on the card over the synthetic corpus (with -sth, -de, the
+    CRF, -pg, -pca): results.txt's Pk, F1 and WD finite; the Transformer's
+    steps launch K4 and K3 alike and K2 more (validation and test too), the
+    other taggers no flash kernel. Then the experiment served on the card:
+    predict on its checkpoint there and on the CPU gives the same
+    results.pkl, or --infer tests its checkpoint as final=0.500.ckpt."""
+    import re
+    import shutil
+
+    from multimodaltopicsegmentation_torch.cli.predict import cli_main as predict
+    from multimodaltopicsegmentation_torch.ops import flash_attention as FA
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    # ecapa's 192 dims: 2 heads of 96, a head dim the flash kernel takes (multiples of 4)
+    emb_dir, lab_file, split = make_synthetic_corpus(str(tmp_path / "corpus"), n_docs=10, dim=192)
+    argv = ["-enc", "ecapa", "-ef", emb_dir, "-lf", lab_file, "-split", split, "-lr", "1e-2",
+            "-bs", "4", "-max", "3", "-vp", "0.2", "-pat", "3", "-loss", "FocalLoss", "-ar",
+            "-as", "--device", "cuda"]
+    flags, serve = CARD_CLI[name]
+    counters = (FA._flash_fwd, FA._flash_dq, FA._flash_dq_dbias, FA._flash_dkv)
+    for c in counters:
+        c.launches = 0
+    exp = str(tmp_path / "exp")
+    _run_train_cli(argv + flags + ["-exp", exp])
+    k2, k4, k5, k3 = (c.launches for c in counters)
+    if "Transformer" in flags:
+        assert k2 > k4 == k3 > 0 and k5 == 0
+    else:
+        assert k2 == k4 == k5 == k3 == 0
+
+    def scores(exp):
+        txt = open(os.path.join(exp, "results.txt")).read()
+        got = [float(m) for m in re.findall(r"Mean (?:Pk|F1|WD) obtained is (\S+)", txt)]
+        assert len(got) >= 3 and np.isfinite(got).all(), txt
+        return got
+
+    scores(exp)
+    best = os.path.join(exp, "checkpoints", "best_model")
+    if serve == "infer":
+        shutil.copy(best, os.path.join(exp, "checkpoints", "final=0.500.ckpt"))
+        _run_train_cli([a for a in argv + flags if a != "-pg"] + ["--infer", "-exp", exp])
+        scores(exp)
+    elif serve == "predict":
+        results = []
+        for device in ("cuda", "cpu"):
+            out = str(tmp_path / f"pred_{device}")
+            predict(["-ef", emb_dir, "-hyp", os.path.join(exp, "results.txt"), "-model", best,
+                     "-exp", out, "-rjs", "--device", device])
+            with open(os.path.join(out, "results.pkl"), "rb") as f:
+                results.append(pickle.load(f))
+        assert results[0] == results[1] and len(results[0]) == 10
+
+
 def _second_modality(emb_dir, out_dir, seed=7):
     """A second modality for late fusion: the same file names and unit counts
     as `emb_dir`, 30-dim features of their own (`-enc2 CNN`)."""

@@ -1,8 +1,9 @@
 """Rank functions for the port's parallel tests. Each runs in a process that
 `multimodaltopicsegmentation_torch.parallel.dryrun.spawn_ranks` started and
-joined to a gloo group on the CPU; it imports torch and the port only (no
-JAX, which the test process runs for the references) and pickles what it
-computed to `out_dir/rank{r}.pkl`, rank by rank."""
+joined to a gloo group, on the device it was given (the CPU, or ranks
+sharing the one card: `spawn_on_one_card`); it imports torch and the port
+only (no JAX, which the test process runs for the references) and pickles
+what it computed, as numpy, to `out_dir/rank{r}.pkl`, rank by rank."""
 import os
 import pickle
 
@@ -29,10 +30,64 @@ def load(out_dir, nprocs):
     return out
 
 
-def tagger(arch, cfg: dict, params):
+def spawn_on_one_card(fn, nprocs, args, store_dir, timeout=600):
+    """`spawn_ranks` on "cuda" with the first card the only one visible: the
+    ranks share it (gloo: more ranks than cards)."""
+    from multimodaltopicsegmentation_torch.parallel.dryrun import spawn_ranks
+
+    first = os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0]
+    old = os.environ.get("CUDA_VISIBLE_DEVICES")
+    os.environ["CUDA_VISIBLE_DEVICES"] = first
+    try:
+        spawn_ranks(fn, nprocs, args, "cuda", timeout=timeout, store_dir=store_dir)
+    finally:
+        if old is None:
+            os.environ.pop("CUDA_VISIBLE_DEVICES")
+        else:
+            os.environ["CUDA_VISIBLE_DEVICES"] = old
+
+
+def torchrun_on_one_card(module, argv, nprocs=2, timeout=600):
+    """`python -m torch.distributed.run --standalone` of a CLI module from the
+    repository's root, its ranks sharing the first card (each joins by
+    env://); every process of the run is killed at its end or its time
+    limit. -> its output; raises with it if the run fails."""
+    import signal
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ,
+               CUDA_VISIBLE_DEVICES=os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0])
+    proc = subprocess.Popen([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                             "--nproc_per_node", str(nprocs), "-m", module, *argv], cwd=root,
+                            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=timeout)
+    finally:
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        proc.wait()
+    if proc.returncode != 0:
+        raise RuntimeError(f"torchrun {module} exited {proc.returncode}:\n{out[-3000:]}")
+    return out
+
+
+def tagger(arch, cfg: dict, params, device="cpu"):
     t = registry.build(arch, TaggerConfig(**cfg))
     t.load_state_dict(type(t).from_jax_params(params))
-    return t
+    return t.to(device)
+
+
+def launches() -> tuple:
+    """The flash kernels' launch counters of this process: (K2, K4, K5, K3)."""
+    from multimodaltopicsegmentation_torch.ops import flash_attention as FA
+
+    return tuple(f.launches for f in (FA._flash_fwd, FA._flash_dq, FA._flash_dq_dbias,
+                                      FA._flash_dkv))
 
 
 def force_flash():
@@ -44,7 +99,7 @@ def force_flash():
 
 
 def grads(model) -> dict:
-    return {n: p.grad.detach().numpy().copy() for n, p in model.named_parameters()
+    return {n: p.grad.detach().cpu().numpy().copy() for n, p in model.named_parameters()
             if p.grad is not None}
 
 
@@ -52,18 +107,20 @@ def dp_steps(rank, out_dir, cases):
     """Data-parallel Adam steps: for each (name, arch, cfg, params, batch,
     steps, lr, extra) -> the batch losses, the final JAX-layout params and
     the first step's gradients as the step left them (summed over the
-    ranks)."""
+    ranks); under "launches", each case's flash launches."""
     mesh = PM.make_mesh()
-    res = {}
+    res = {"launches": {}}
     for name, arch, cfg, params, batch, steps, lr, extra in cases:
-        model = tagger(arch, cfg, params)
+        before = launches()
+        model = tagger(arch, cfg, params, mesh.device)
         step = TS.make_sharded_train_step(model, make_optimizer("Adam", model.parameters(), lr),
                                           mesh, extra)
-        share = batches_to_device([PM.shard_batch(mesh, batch)], "cpu")[0]
+        share = batches_to_device([PM.shard_batch(mesh, batch)], mesh.device)[0]
         losses = [float(step(share, None))]
         first = grads(model)
         losses += [float(step(share, None)) for _ in range(steps - 1)]
         res[name] = (losses, model.to_jax_params(), first)
+        res["launches"][name] = tuple(n - m for n, m in zip(launches(), before))
     save(out_dir, rank, res)
 
 
@@ -76,11 +133,12 @@ def loss_parts(rank, out_dir, cases, batch, fit):
     from multimodaltopicsegmentation_torch.train.loop import Trainer, tagger_loss
 
     mesh = PM.make_mesh()
-    whole = batches_to_device([batch], "cpu")[0]
-    share = batches_to_device([PM.shard_batch(mesh, batch)], "cpu")[0]
+    whole = batches_to_device([batch], mesh.device)[0]
+    share = batches_to_device([PM.shard_batch(mesh, batch)], mesh.device)[0]
     res = {}
     for name, arch, cfg, extra in cases:
-        model = registry.build(arch, TaggerConfig(**cfg), torch.Generator().manual_seed(0))
+        model = registry.build(arch, TaggerConfig(**cfg),
+                               torch.Generator().manual_seed(0)).to(mesh.device)
         loss = tagger_loss(model, extra)(whole, None)
         loss.backward()
         one = grads(model)
@@ -92,7 +150,7 @@ def loss_parts(rank, out_dir, cases, batch, fit):
             part.detach(), mesh)), part_grads=grads(model))
     arch, cfg, kw = fit
     trainer = Trainer(arch, TaggerConfig(**cfg), check_dir=os.path.join(out_dir, f"ckpt{rank}"),
-                      device="cpu", mesh=mesh, **kw)
+                      device=mesh.device, mesh=mesh, **kw)
     res["fit"] = trainer.fit([batch], [batch])
     save(out_dir, rank, res)
 
@@ -100,8 +158,8 @@ def loss_parts(rank, out_dir, cases, batch, fit):
 def grid_fit(rank, out_dir, cfg, grid, batches, kw):
     from multimodaltopicsegmentation_torch.train.grid import GridTrainer
 
-    gt = GridTrainer("BiLSTM", TaggerConfig(**cfg), grid, mesh=PM.make_mesh(), device="cpu",
-                     **kw)
+    mesh = PM.make_mesh()
+    gt = GridTrainer("BiLSTM", TaggerConfig(**cfg), grid, mesh=mesh, device=mesh.device, **kw)
     finals, histories = gt.fit(batches, batches)
     paths = list(gt.best_model_paths)
     save(out_dir, rank, (finals, histories, paths, [gt.save_final(g) for g in range(len(grid))]))
@@ -116,50 +174,54 @@ def run_cli(rank, module, argv, cwd):
 
 
 def sequence_case(rank, out_dir, cfg, params, x, lengths, tags, flash, fit_batch):
-    """The sequence-sharded logits, the batch's loss and its gradients;
-    then `Trainer(sequence_shards=n)` for 3 epochs."""
+    """The sequence-sharded logits, the batch's loss and its gradients (and
+    the flash launches they took); then `Trainer(sequence_shards=n)` for 3
+    epochs."""
     from multimodaltopicsegmentation_torch.parallel import sequence as SQ
     from multimodaltopicsegmentation_torch.train.loop import Trainer
 
     if flash:
         force_flash()
     mesh = PM.make_mesh()
-    model = tagger("Transformer", cfg, params)
-    x, lengths, tags = (torch.as_tensor(a) for a in (x, lengths, tags))
+    model = tagger("Transformer", cfg, params, mesh.device)
+    x, lengths, tags = (torch.as_tensor(a).to(mesh.device) for a in (x, lengths, tags))
     logits, dec = SQ.sequence_sharded_transformer_decode(mesh, model, x, lengths, 0.5)
     part = SQ.sequence_sharded_transformer_loss(mesh, model, x, lengths, tags, train=False)
     part.backward()
     TS.all_reduce_grads(list(model.parameters()), mesh)
     loss = float(PM.all_reduce_sum(part.detach(), mesh))
+    counted = launches()
     trainer = Trainer("Transformer", TaggerConfig(**cfg), lr=1e-3, max_epochs=3,
-                      check_dir=os.path.join(out_dir, f"ckpt{rank}"), seed=0, device="cpu",
-                      sequence_shards=mesh.size)
+                      check_dir=os.path.join(out_dir, f"ckpt{rank}"), seed=0,
+                      device=mesh.device, sequence_shards=mesh.size)
     _, history = trainer.fit([fit_batch], [fit_batch])
     test, _, scores = trainer.test(trainer.params, [fit_batch])
-    save(out_dir, rank, dict(logits=logits.numpy(), tags=dec.numpy(), loss=loss,
+    save(out_dir, rank, dict(logits=logits.cpu().numpy(), tags=dec.cpu().numpy(), loss=loss,
                              grads=grads(model), history=history, test=test, scores=scores,
-                             halo_bytes=PM.stats["staged_bytes"]))
+                             halo_bytes=PM.stats["staged_bytes"], launches=counted))
 
 
 def pipeline_case(rank, out_dir, cfg, params, x, lengths, tags, n_micro, fit_batch):
-    """The pipelined loss and its gradients, the pipelined logits; then
-    `Trainer(pipeline_stages=n)` for 3 epochs."""
+    """The pipelined loss and its gradients, the pipelined logits (and the
+    flash launches they took); then `Trainer(pipeline_stages=n)` for 3
+    epochs."""
     from multimodaltopicsegmentation_torch.parallel import pipeline as PP
     from multimodaltopicsegmentation_torch.train.loop import Trainer
 
     mesh = PM.make_mesh()
-    model = tagger("Transformer", cfg, params)
-    x, lengths, tags = (torch.as_tensor(a) for a in (x, lengths, tags))
+    model = tagger("Transformer", cfg, params, mesh.device)
+    x, lengths, tags = (torch.as_tensor(a).to(mesh.device) for a in (x, lengths, tags))
     part = PP.pipeline_transformer_loss(mesh, model, x, lengths, tags, n_micro, train=False)
     TS.all_reduce_grads(list(model.parameters()), mesh)
     loss = float(PM.all_reduce_sum(part, mesh))
     logits = PP.pipeline_transformer_scores(mesh, model, x, lengths, n_micro)
+    counted = launches()
     trainer = Trainer("Transformer", TaggerConfig(**cfg), lr=1e-3, max_epochs=3,
-                      check_dir=os.path.join(out_dir, f"ckpt{rank}"), seed=0, device="cpu",
-                      pipeline_stages=mesh.size)
+                      check_dir=os.path.join(out_dir, f"ckpt{rank}"), seed=0,
+                      device=mesh.device, pipeline_stages=mesh.size)
     _, history = trainer.fit([fit_batch], [fit_batch])
-    save(out_dir, rank, dict(loss=loss, grads=grads(model), logits=logits.numpy(),
-                             history=history, params=trainer.params))
+    save(out_dir, rank, dict(loss=loss, grads=grads(model), logits=logits.cpu().numpy(),
+                             history=history, params=trainer.params, launches=counted))
 
 
 def expert_case(rank, out_dir, cfg, params, x, lengths, tags, domains, fit_batch):
@@ -171,18 +233,19 @@ def expert_case(rank, out_dir, cfg, params, x, lengths, tags, domains, fit_batch
 
     mesh = PM.make_mesh()
     towers, shared = EX.split_towers(params)
-    model = tagger("SwitchBiLSTM", cfg, EX.join_towers(towers, shared))
-    x, lengths, tags, domains = (torch.as_tensor(a) for a in (x, lengths, tags, domains))
+    model = tagger("SwitchBiLSTM", cfg, EX.join_towers(towers, shared), mesh.device)
+    x, lengths, tags, domains = (torch.as_tensor(a).to(mesh.device)
+                                 for a in (x, lengths, tags, domains))
     logits = EX.expert_sharded_switch_scores(mesh, model, x, lengths, domains)
     loss = EX.expert_sharded_switch_loss(mesh, model, x, lengths, tags, domains, train=False)
     loss.backward()
     local = grads(model)
     TS.all_reduce_grads(list(model.parameters()), mesh, list(model.classification.parameters()))
     trainer = Trainer("SwitchBiLSTM", TaggerConfig(**cfg), lr=1e-3, max_epochs=3,
-                      check_dir=os.path.join(out_dir, f"ckpt{rank}"), seed=0, device="cpu")
+                      check_dir=os.path.join(out_dir, f"ckpt{rank}"), seed=0, device=mesh.device)
     _, history = trainer.fit([fit_batch], [fit_batch])
     test, _, _ = trainer.test(trainer.params, [fit_batch])
-    save(out_dir, rank, dict(logits=logits.detach().numpy(), loss=float(loss), local=local,
+    save(out_dir, rank, dict(logits=logits.detach().cpu().numpy(), loss=float(loss), local=local,
                              grads=grads(model), history=history, test=test,
                              expert=trainer.expert_mesh is not None))
 
@@ -229,7 +292,7 @@ def card_case(rank, out_dir, cfg, params, x, lengths, tags):
     from multimodaltopicsegmentation_torch.parallel import sequence as SQ
 
     mesh = PM.make_mesh()
-    model = tagger("Transformer", cfg, params).to(mesh.device)
+    model = tagger("Transformer", cfg, params, mesh.device)
     x, lengths, tags = (torch.as_tensor(a).to(mesh.device) for a in (x, lengths, tags))
     logits, _ = SQ.sequence_sharded_transformer_decode(mesh, model, x, lengths, 0.5)
     part = SQ.sequence_sharded_transformer_loss(mesh, model, x, lengths, tags, train=False)
@@ -246,23 +309,25 @@ def tp_case(mesh, arch, cfg, params, batch, steps, lr, extra, clip):
     rank's data share -> the batch losses, the final params (the gathered
     JAX layout), the first step's gradients (gathered, as the step left them,
     clipped where `clip`), this rank's shards before the first step and the
-    shapes of the parameters' and their Adam state's tensors."""
+    shapes of the parameters' and their Adam state's tensors, and the flash
+    launches of the steps."""
     from multimodaltopicsegmentation_torch.parallel import tensor as TP
 
-    model = TP.tensor_parallel(tagger(arch, cfg, params), mesh)
-    shards = {k: v.numpy().copy() for k, v in model.state_dict().items()}
+    before = launches()
+    model = TP.tensor_parallel(tagger(arch, cfg, params, mesh.device), mesh)
+    shards = {k: v.cpu().numpy().copy() for k, v in model.state_dict().items()}
     opt = make_optimizer("Adam", model.parameters(), lr)
     step = TS.make_sharded_train_step(model, opt, mesh, extra, clip)
-    share = batches_to_device([PM.shard_batch(mesh, batch)], "cpu")[0]
+    share = batches_to_device([PM.shard_batch(mesh, batch)], mesh.device)[0]
     losses = [float(step(share, None))]
-    first = {k: v.numpy().copy() for k, v in TP.full_tensors(
+    first = {k: v.cpu().numpy().copy() for k, v in TP.full_tensors(
         model, {n: p.grad for n, p in model.named_parameters()}).items()}
     losses += [float(step(share, None)) for _ in range(steps - 1)]
     shapes = {n: (tuple(p.shape), [tuple(v.shape) for v in opt.state[p].values()
                                    if isinstance(v, torch.Tensor)])
               for n, p in model.named_parameters()}
     return dict(losses=losses, params=TP.full_jax_params(model), first=first, shards=shards,
-                shapes=shapes)
+                shapes=shapes, launches=tuple(n - m for n, m in zip(launches(), before)))
 
 
 def tp_rank(rank, out_dir, plan):
@@ -290,13 +355,15 @@ def tp_rank(rank, out_dir, plan):
         res["steps"][key] = dict(position=(mesh.index, mesh.model_index), shape=mesh.shape,
                                  cases={name: tp_case(mesh, *case) for name, case in cases})
     for key, (m, arch, cfg, params, batch) in plan.get("decode", {}).items():
-        decode = TS.make_sharded_decode(tagger(arch, cfg, params), mesh_of(m), 0.5)
+        mesh = mesh_of(m)
+        decode = TS.make_sharded_decode(tagger(arch, cfg, params, mesh.device), mesh, 0.5)
         scores, tags = decode(batch)
-        res["decode"][key] = (scores.numpy(), tags.numpy())
+        res["decode"][key] = (scores.cpu().numpy(), tags.cpu().numpy())
     if "trainer" in plan:
         m, arch, cfg, kw, train, valid = plan["trainer"]
+        mesh = mesh_of(m)
         trainer = Trainer(arch, TaggerConfig(**cfg), check_dir=os.path.join(out_dir, "tp_ckpt"),
-                          device="cpu", mesh=mesh_of(m), **kw)
+                          device=mesh.device, mesh=mesh, **kw)
         params, history = trainer.fit(train, valid)
         test = trainer.test(params, valid)[0]
         res["trainer"] = dict(params=params, history=history, path=trainer.best_model_path,
@@ -304,7 +371,8 @@ def tp_rank(rank, out_dir, plan):
                               seed=trainer.generator.initial_seed())
     if "grid" in plan:
         m, cfg, grid, batches, kw = plan["grid"]
-        gt = GridTrainer("BiLSTM", TaggerConfig(**cfg), grid, mesh=mesh_of(m), device="cpu", **kw)
+        mesh = mesh_of(m)
+        gt = GridTrainer("BiLSTM", TaggerConfig(**cfg), grid, mesh=mesh, device=mesh.device, **kw)
         finals, histories = gt.fit(batches, batches)
         res["grid"] = (finals, histories, list(gt.best_model_paths),
                        [gt.save_final(g) for g in range(len(grid))])
@@ -313,7 +381,8 @@ def tp_rank(rank, out_dir, plan):
         res["modes"] = []
         for kw in (dict(pipeline_stages=2), dict(sequence_shards=2), dict(expert_parallel=True)):
             try:
-                Trainer(arch, TaggerConfig(**cfg), device="cpu", mesh=mesh_of(m), **kw)
+                Trainer(arch, TaggerConfig(**cfg), device=mesh_of(m).device, mesh=mesh_of(m),
+                        **kw)
                 res["modes"].append(None)
             except ValueError as e:
                 res["modes"].append(str(e))
