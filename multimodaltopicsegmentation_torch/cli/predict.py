@@ -3,7 +3,9 @@
 Counterpart of the JAX package's cli/predict.py: read the sentence encoder
 from a training `results.txt`, load the checkpoint (the JAX package's pickle
 format, which names the architecture), optionally extract embeddings from an audio folder
-in-process (uniform 1-second units), decode every document on the device,
+in-process (uniform 1-second units; `-ee --wav2vec` runs the checkpoint that
+MTS_WAV2VEC2_WEIGHTS names: wav2vec2, WavLM or w2v-BERT 2.0, as its
+config.json says), decode every document on the device,
 convert boundary vectors to sample spans (`segment_audio`) and write
 per-segment wavs with +-1 s overlap and `results.pkl`.
 

@@ -6,13 +6,17 @@ the device in chunks:
 - unit-level DSP encoders (prosodic 167-d, mfcc 200-d) run dsp/prosody.py;
   prosodic chunks carry one unit of left context so that the pitch-jump
   chain survives chunking;
-- wav2vec2 (or WavLM, by the checkpoint's config) runs the transformer over
-  256-row chunks, one chunk ahead of the copy of its frames to the host
-  (through two pinned staging slots), and slices each unit's valid frames;
+- wav2vec2, WavLM or w2v-BERT 2.0 (by the checkpoint's config) runs the
+  transformer over 256-row chunks, one chunk ahead of the copy of its frames
+  to the host (through two pinned staging slots), and slices each unit's
+  valid frames;
 - x-vector, ECAPA, OpenL3 and CREPE live in tdnn.py, openl3.py, crepe.py.
 
 Encoders without weights raise unless MTS_RANDOM_ENCODER_WEIGHTS=1
 (random-weight smoke mode, announced); explicit weights always win.
+MTS_WAV2VEC2_WEIGHTS names a local HF checkpoint directory of wav2vec2,
+WavLM or w2v-BERT 2.0 (facebook/w2v-bert-2.0, `model_type`
+"wav2vec2-bert"); its config.json says which model `--wav2vec` runs.
 """
 from __future__ import annotations
 
@@ -24,6 +28,7 @@ import torch
 
 from ..core.torch_setup import resolve_device
 from ..utils import profiling
+from . import w2v_bert as B
 from . import wav2vec2 as W
 from .engine_util import bucket_rows, pad_units, traced_encode, unit_lengths
 
@@ -83,8 +88,9 @@ class MFCCEncoder:
 
 
 class Wav2Vec2Encoder:
-    """wav2vec2 or WavLM (the checkpoint's config.json says which), as
-    `encoders/wav2vec2.py` runs them."""
+    """wav2vec2 or WavLM, as `encoders/wav2vec2.py` runs them, or w2v-BERT 2.0
+    (`encoders/w2v_bert.py`): the checkpoint's config.json says which. Each
+    model's own rule gives a unit's frames (`frames`)."""
 
     name = "wav2vec"
     frame_level = True
@@ -108,7 +114,24 @@ class Wav2Vec2Encoder:
             state = W.random_state_dict(self.cfg, seed=0)
         else:
             state, self.cfg = W.load_pretrained(weights or name_or_path)
-        self.model = W.build_model(self.cfg, state, self.device)
+        self.model = _model_module(self.cfg).build_model(self.cfg, state, self.device)
+
+    @classmethod
+    def from_state(cls, cfg, state_dict: dict, device="cuda") -> "Wav2Vec2Encoder":
+        """The encoder around weights already in hand: `cfg` a
+        `wav2vec2.Wav2Vec2Config` or a `w2v_bert.W2VBertConfig`, `state_dict`
+        the module's own (as `load_pretrained` returns it)."""
+        enc = cls.__new__(cls)
+        enc.device, enc.cfg = resolve_device(device), cfg
+        enc.model = _model_module(cfg).build_model(cfg, state_dict, enc.device)
+        return enc
+
+    def frames(self, n_samples):
+        """Frames the model makes of `n_samples` samples (an int or an int
+        tensor): the conv stack's count, or w2v-BERT's fbank rows."""
+        if isinstance(self.cfg, B.W2VBertConfig):
+            return B.output_length(n_samples)
+        return W.feature_extractor_output_length(self.cfg, n_samples)
 
     @traced_encode
     def encode_document(self, audio, bounds, chunk=256) -> List[np.ndarray]:
@@ -123,7 +146,7 @@ class Wav2Vec2Encoder:
         after the copy back says when the slot is free again."""
         with profiling.span("encode_document.pack"):
             lens, S = unit_lengths(bounds, bucket=True)
-            T = W.feature_extractor_output_length(self.cfg, S)
+            T = self.frames(S)
             out = np.empty((len(bounds), T, self.cfg.hidden_size), np.float32)
         cuda = self.device.type == "cuda"
         if self._slots is None:
@@ -167,8 +190,13 @@ class Wav2Vec2Encoder:
             to_host.add("bytes_to_host", out[i : i + nb].nbytes)
         with profiling.span("encode_document.slice"):
             for row, n in zip(out[i : i + nb], lens[i : i + nb]):
-                t = W.feature_extractor_output_length(self.cfg, int(n))
+                t = self.frames(int(n))
                 outs.append(row[: max(t, 1)])
+
+
+def _model_module(cfg):
+    """The module that builds the model of `cfg`."""
+    return B if isinstance(cfg, B.W2VBertConfig) else W
 
 
 class _Slot(NamedTuple):

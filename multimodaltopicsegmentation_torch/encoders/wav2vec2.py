@@ -485,8 +485,9 @@ def load_hf_state_dict(sd: dict, cfg: Wav2Vec2Config) -> dict:
 def load_pretrained(path: str):
     """A local HF checkpoint -> (state_dict, config). `path` is its directory
     (pytorch_model.bin or model.safetensors) or the weights file itself. The
-    config is the `config.json` beside the weights (a wav2vec2 or WavLM
-    model), or wav2vec2-base's when there is none."""
+    config is the `config.json` beside the weights: a wav2vec2 or WavLM model
+    here, a w2v-BERT 2.0 one (`model_type` "wav2vec2-bert") in
+    encoders/w2v_bert.py; wav2vec2-base's when there is none."""
     folder = path if os.path.isdir(path) else os.path.dirname(path)
     if os.path.isdir(path):
         path = os.path.join(folder, "pytorch_model.bin")
@@ -497,14 +498,20 @@ def load_pretrained(path: str):
             f"wav2vec2 weights {path!r} not found: point MTS_WAV2VEC2_WEIGHTS at a "
             "local HF checkpoint directory holding pytorch_model.bin or model.safetensors"
         )
-    cfg = Wav2Vec2Config.base()
+    cfg, convert = Wav2Vec2Config.base(), load_hf_state_dict
     if os.path.exists(os.path.join(folder, "config.json")):
         with open(os.path.join(folder, "config.json")) as f:
-            cfg = Wav2Vec2Config.from_hf(json.load(f))
+            hf = json.load(f)
+        if hf.get("model_type") == "wav2vec2-bert":
+            from . import w2v_bert
+
+            cfg, convert = w2v_bert.W2VBertConfig.from_hf(hf), w2v_bert.load_hf_state_dict
+        else:
+            cfg = Wav2Vec2Config.from_hf(hf)
     if path.endswith(".safetensors"):
         from safetensors.torch import load_file
 
         sd = load_file(path)
     else:
         sd = torch.load(path, map_location="cpu", weights_only=True)
-    return load_hf_state_dict(sd, cfg), cfg
+    return convert(sd, cfg), cfg

@@ -42,6 +42,15 @@ Spans (kind; counts), by where they open:
                                position bias P, once a forward; bias_bytes
     encode_document.forward.gate      enqueue only (WavLM), one per layer: the
                                layer's gate and its product with P; heads
+  encoders/w2v_bert.W2VBert.forward (inside encode_document.forward)
+    encode_document.forward.features  enqueue only: the Kaldi fbank and the
+                               feature projection; fbank_frames (B x F of the
+                               chunk's padded length)
+    encode_document.forward.rel_key   enqueue only, one per layer: q E^T and
+                               its gather into the score bias; distances (the
+                               table's rows, left + right + 1)
+    encode_document.forward.conv_module  enqueue only, one per layer: the
+                               conv module; frames (B x T of the chunk)
     encode_document.to_host    wall-true: the wait on the chunk's event and the
                                copy of its slot into the document's array;
                                bytes_to_host (the chunk's frames)
