@@ -15,7 +15,11 @@ The kernels are K1 (instance norm + GELU), K2 (banded flash attention
 forward), K6 (fused local attention), the flash backward K4 (dq), K5 (dq +
 dbias; two calls must give the same bits) and K3 (dk, dv), and the 3xTF32
 dense layer (linear_tf32x3) at the six main-path shapes of wav2vec2-base and
-of WavLM-Large against float64. K2, K4 and K3 are also held, untimed, to
+of WavLM-Large and the feature stack's channels-last conv (conv_tf32x3) at
+conv layers 1, 4 and 5 of a 256-row chunk and conv layer 1 of a 32-row tail,
+both against float64, and the stack's three kernels around it: conv layer 0
+(first_conv), the transposing pass of K1's output (channels_last) and the
+per-frame LayerNorm + GELU (layer_norm_gelu) at every frame count of a chunk. K2, K4 and K3 are also held, untimed, to
 their plain versions at the shapes two ranks of the parallel layer give them;
 the four differentiable flash entries' gradients are held to the plain
 path's.
@@ -243,6 +247,173 @@ def check_linear_tf32x3(dev):
             "max_error": max(r["error"] for r in shapes),
             **{k: main[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms", "library_ms")},
             "shapes": shapes}
+
+
+# (name, rows, C_in, C_out, k, stride, output frames) of conv layers 1, 4 and 5
+# over 1-s units: a 256-row chunk, and conv layer 1 of a 32-row tail bucket
+CONVS = (("conv1", 256, 512, 512, 3, 2, 1600), ("conv4", 256, 512, 512, 3, 2, 200),
+         ("conv5", 256, 512, 512, 2, 2, 100), ("conv1", 32, 512, 512, 3, 2, 1600))
+
+
+def check_conv_tf32x3(dev):
+    """The feature stack's strided conv as a channels-last 3xTF32 implicit GEMM,
+    at the shapes of CONVS: error against
+    float64 over the conv of |x| and |w| plus |b| (the batch read as one
+    sequence, as the kernel reads it), device time against the 3xTF32 floor,
+    the plain version (the same three products over the unfolded columns) and
+    cuDNN's float32 F.conv1d on [B, C, T], the layout the stack had."""
+    import torch
+    import torch.nn.functional as F
+
+    from multimodaltopicsegmentation_torch.ops import conv_tf32x3 as K
+
+    shapes = []
+    for name, B, c_in, c_out, k, s, P in CONVS:
+        g = torch.Generator(device=dev).manual_seed(B + P + k)
+        x = torch.randn(B, s * P, c_in, device=dev, generator=g)
+        w = torch.randn(c_out, c_in, k, device=dev, generator=g) * (k * c_in) ** -0.5
+        b = 0.1 * torch.randn(c_out, device=dev, generator=g)
+        fused = (K.split_tf32(K.gemm_weight(w).contiguous()), k)
+        got = K.conv_tf32x3(x, fused, b, s, True)
+        torch.cuda.synchronize()
+        flat = x.reshape(1, -1, c_in)
+        want = F.gelu(K._plain(flat.double(), w.double(), b.double(), s, False))
+        scale = K._plain(flat.double().abs(), w.double().abs(), b.double().abs(), s, False)
+        err = ((got.reshape(1, -1, c_out).double() - want).abs() / scale).max().item()
+        if err > 1e-5:
+            raise RuntimeError(f"conv_tf32x3 {name} [{B}, {s * P}, {c_in}] k {k}: error {err:.3e}")
+        del got, want, scale, flat
+        ops = 2 * B * P * c_out * k * c_in
+        bytes_moved = 4 * (B * s * P * c_in + 2 * c_out * k * c_in + c_out + B * P * c_out)
+        x_nct = x.transpose(1, 2).contiguous()
+        row = {"conv": name, "B": B, "frames_in": s * P, "C_in": c_in, "C_out": c_out, "k": k,
+               "stride": s, "error": err,
+               "ms": time_ms(lambda: K.conv_tf32x3(x, fused, b, s, True)),
+               "device_ms": time_ms(lambda: K.conv_tf32x3(x, fused, b, s, True), spin=True),
+               "bound_ms": 1e3 * floor_s(ops, bytes_moved),
+               "plain_ms": time_ms(lambda: K.conv_tf32x3_reference(x, w, b, s, True), iters=3),
+               "library_ms": time_ms(lambda: F.gelu(F.conv1d(x_nct, w, b, stride=s)), spin=True)}
+        row["share"] = row["bound_ms"] / row["device_ms"]
+        log(f"[conv_tf32x3] {name} [{B}, {s * P}, {c_in}] -> [{B}, {P}, {c_out}], k {k} + GELU: "
+            f"error {err:.3e}; kernel {row['ms']:.4f} ms ({row['device_ms']:.4f} ms device time), "
+            f"3xTF32 floor {row['bound_ms']:.4f} ms ({100 * row['share']:.1f} %), plain "
+            f"{row['plain_ms']:.4f} ms, cuDNN F.conv1d [B, C, T] {row['library_ms']:.4f} ms")
+        shapes.append(row)
+        del x, w, b, fused, x_nct
+    main = shapes[0]
+    return {"name": "conv_tf32x3", "route": "cuda",
+            "source": "multimodaltopicsegmentation_torch/csrc/conv_tf32x3.cu",
+            "replaces": "none (the feature stack's convolutions, left to XLA in the JAX package)",
+            "max_error": max(r["error"] for r in shapes),
+            **{k: main[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms", "library_ms")},
+            "shapes": shapes}
+
+
+def scaled_error(got, want, scale):
+    return ((got.double() - want).abs() / scale).max().item()
+
+
+def check_feature_stack_kernels(dev):
+    """The feature stack's memory-bound kernels around conv_tf32x3, each at the
+    main path's shapes of a 256-row chunk of 1-s units, against its plain
+    version in float64 (channels_last: equal bits), timed against the byte
+    floor at the HBM rate and one PyTorch call: conv layer 0 (first_conv,
+    WavLM-Large's) against cuDNN's float32 conv alone, K1's output into the
+    layout (channels_last, wav2vec2-base's) against torch's transposing copy,
+    and the per-frame LayerNorm + GELU (layer_norm_gelu, WavLM-Large's, at
+    each of the 7 frame counts) against F.layer_norm then F.gelu. The plain
+    versions are the wrappers' CPU paths run on the card in float32."""
+    import torch
+    import torch.nn.functional as F
+
+    from multimodaltopicsegmentation_torch.ops import conv_tf32x3 as K
+
+    B, C, S, k, s, frames = 256, 512, 16000, 10, 5, 3200
+    g = torch.Generator(device=dev).manual_seed(22)
+    out = {}
+
+    def entry(name, err, run, plain, library, bytes_moved, ops, **extra):
+        bound_ms, bound_by = bound(bytes_moved, ops)
+        row = {"name": name, "route": "cuda",
+               "source": "multimodaltopicsegmentation_torch/csrc/conv_tf32x3.cu",
+               "replaces": "none (the feature stack, left to XLA in the JAX package)",
+               "max_error": err, "ms": time_ms(run), "device_ms": time_ms(run, spin=True),
+               "plain_ms": time_ms(plain, spin=True), "bound_ms": bound_ms, "bound_by": bound_by,
+               "library_ms": time_ms(library, spin=True), **extra}
+        row["share"] = row["bound_ms"] / row["device_ms"]
+        return row
+
+    # conv layer 0: [B, 16000] audio -> [B, 3200, 512], k 10, stride 5, + bias
+    audio = torch.randn(B, S, device=dev, generator=g)
+    w = torch.randn(C, 1, k, device=dev, generator=g) * k ** -0.5
+    b = 0.1 * torch.randn(C, device=dev, generator=g)
+    got = K.first_conv(audio, w, b, s, frames)
+    torch.cuda.synchronize()
+    want = K._first_conv_plain(audio.double(), w.double(), b.double(), s, frames)
+    scale = K._first_conv_plain(audio.double().abs(), w.double().abs(), b.double().abs(), s,
+                                frames)
+    err = scaled_error(got, want, scale)
+    if err > 2e-6:
+        raise RuntimeError(f"first_conv [{B}, {S}] -> [{B}, {frames}, {C}]: error {err:.3e}")
+    del got, want, scale
+    row = entry("first_conv", err, lambda: K.first_conv(audio, w, b, s, frames),
+                lambda: K._first_conv_plain(audio, w, b, s, frames),
+                lambda: F.conv1d(audio[:, None], w, b, stride=s),
+                4 * (B * S + C * k + C + B * frames * C), 2 * k * C * B * frames)
+    log(f"[first_conv] [{B}, {S}] -> [{B}, {frames}, {C}], k {k}, stride {s}: error {err:.3e}; "
+        f"kernel {row['ms']:.4f} ms ({row['device_ms']:.4f} ms device time), bound "
+        f"{row['bound_ms']:.4f} ms ({row['bound_by']}, {100 * row['share']:.1f} %), plain "
+        f"{row['plain_ms']:.4f} ms, cuDNN F.conv1d [B, C, T] {row['library_ms']:.4f} ms")
+    out["first_conv"] = row
+    del audio, w, b
+
+    # K1's output [B, 512, 3199] into the padded layout [B, 3200, 512]
+    T = frames - 1
+    x = torch.randn(B, C, T, device=dev, generator=g)
+    got = K.channels_last(x, frames)
+    if not torch.equal(got, K._channels_last_plain(x, frames)):
+        raise RuntimeError(f"channels_last [{B}, {C}, {T}] -> [{B}, {frames}, {C}]: not equal")
+    del got
+    row = entry("channels_last", 0.0, lambda: K.channels_last(x, frames),
+                lambda: K._channels_last_plain(x, frames),
+                lambda: x.transpose(1, 2).contiguous(), 4 * (B * C * T + B * frames * C), 0)
+    log(f"[channels_last] [{B}, {C}, {T}] -> [{B}, {frames}, {C}]: equal; kernel "
+        f"{row['ms']:.4f} ms ({row['device_ms']:.4f} ms device time), bound "
+        f"{row['bound_ms']:.4f} ms ({row['bound_by']}, {100 * row['share']:.1f} %), plain "
+        f"{row['plain_ms']:.4f} ms, x.transpose(1, 2).contiguous() {row['library_ms']:.4f} ms")
+    out["channels_last"] = row
+    del x
+
+    # WavLM's per-frame LayerNorm + GELU after each conv layer: [B, P_i, 512]
+    scale = 1.0 + 0.1 * torch.randn(C, device=dev, generator=g)
+    shift = 0.1 * torch.randn(C, device=dev, generator=g)
+    shapes = []
+    for P in (3200, 1600, 800, 400, 200, 100, 50):
+        x = torch.randn(B, P, C, device=dev, generator=g)
+        got = K.layer_norm_gelu(x, scale, shift)
+        torch.cuda.synchronize()
+        want = K._layer_norm_gelu_plain(x.double(), scale.double(), shift.double(), 1e-5)
+        # summation order and erff against torch's erf, on values of order 1
+        err = (got.double() - want).abs().max().item()
+        if err > 1e-5:
+            raise RuntimeError(f"layer_norm_gelu [{B}, {P}, {C}]: error {err:.3e}")
+        del got, want
+        n = B * P * C
+        # per element: sum, squared deviation (2), normalise + affine (2),
+        # GELU (5), as K1
+        row = entry("layer_norm_gelu", err, lambda: K.layer_norm_gelu(x, scale, shift),
+                    lambda: K._layer_norm_gelu_plain(x, scale, shift, 1e-5),
+                    lambda: F.gelu(F.layer_norm(x, (C,), scale, shift, 1e-5)),
+                    4 * (2 * n + 2 * C), 10 * n, shape=[B, P, C])
+        log(f"[layer_norm_gelu] [{B}, {P}, {C}]: max_abs_err {err:.3e}; kernel {row['ms']:.4f} "
+            f"ms ({row['device_ms']:.4f} ms device time), bound {row['bound_ms']:.4f} ms "
+            f"({row['bound_by']}, {100 * row['share']:.1f} %), plain {row['plain_ms']:.4f} ms, "
+            f"F.gelu(F.layer_norm) {row['library_ms']:.4f} ms")
+        shapes.append(row)
+        del x
+    out["layer_norm_gelu"] = dict(shapes[0], max_error=max(r["max_error"] for r in shapes),
+                                  shapes=shapes)
+    return out
 
 
 def sdpa_mask(lengths, L, half, dev, bias=None, block=None):
@@ -731,6 +902,8 @@ def main() -> int:
     results.update(check_flash_backward(dev))
     check_autograd_entries(dev)
     results["linear_tf32x3"] = check_linear_tf32x3(dev)
+    results["conv_tf32x3"] = check_conv_tf32x3(dev)
+    results.update(check_feature_stack_kernels(dev))
     log(f"[kernels] against their plain versions: {time.perf_counter() - t:.1f} s")
     log(f"[total] {time.perf_counter() - t0:.1f} s on {smi}")
     log(json.dumps({"kernels": list(results.values())}))

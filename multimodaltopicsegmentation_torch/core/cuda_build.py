@@ -31,7 +31,7 @@ from typing import Dict, Tuple
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 KERNELS = ("instance_norm_gelu", "flash_local_attention", "flash_local_attention_bwd",
-           "linear_tf32x3")
+           "linear_tf32x3", "conv_tf32x3")
 HOST_LIBRARIES = ("audio_native",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -38,8 +38,17 @@ The layer norms of "layer" are per frame and need no mask.
 Every dense linear of the forward (the feature projection, Q/K/V as one
 [3D, D] product, out_proj, intermediate_dense with its GELU, output_dense:
 4 L + 1 a forward) goes through ops/linear_tf32x3's `FusedLinear`: on the
-card the 3xTF32 tensor-core kernel, on the CPU `F.linear` as before. The
-convolutions, the scores and WavLM's gate linear stay torch's.
+card the 3xTF32 tensor-core kernel, on the CPU `F.linear` as before.
+
+On the card the conv stack runs channels-last (`Wav2Vec2._features`): conv
+layer 0 is ops/conv_tf32x3's `first_conv` under "layer" norms, or cuDNN's
+conv then K1 (or the group norm) and one `channels_last` pass under "group";
+conv layers 1.. are the 3xTF32 implicit GEMM `conv_tf32x3` (bias and
+wav2vec2's GELU in its epilogue; L - 1 launches a forward), over frame
+counts padded down the chain (`padded_frames`); WavLM's per-frame LayerNorms
+and GELUs then act on contiguous rows, one `layer_norm_gelu` launch a conv.
+The CPU keeps the [B, C, T] stack of `F.conv1d`. The positional conv, the
+scores and WavLM's gate linear stay torch's.
 
 The positional conv holds its weight-norm already folded, under
 `encoder.pos_conv_embed.conv.weight`; `load_hf_state_dict` folds HF's
@@ -58,6 +67,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import conv_tf32x3 as CV
 from ..ops.attention import dense_attention, merge_heads, split_heads, t5_relative_bucket
 from ..ops.instance_norm_gelu import instance_norm_gelu
 from ..ops.linear_tf32x3 import FusedLinear
@@ -150,6 +160,29 @@ def feature_extractor_output_length(cfg: Wav2Vec2Config, n_samples):
     return n.clamp_min(0) if torch.is_tensor(n) else max(n, 0)
 
 
+def padded_frames(cfg: Wav2Vec2Config, n_samples: int):
+    """Frame counts [P_0, .., P_{L-1}] of the card's channels-last conv stack
+    over `n_samples` samples: each at least the layer's frames and
+    P_{i-1} = stride_i P_i, so that layer i's input reads as [B P_i,
+    stride_i C] (ops/conv_tf32x3). 16000 samples: 3200, 1600, .., 50 for
+    3199, 1599, .., 49 frames."""
+    frames, n = [], n_samples
+    for k, s in zip(cfg.conv_kernel, cfg.conv_stride):
+        n = (n - k) // s + 1
+        frames.append(n)
+    if frames[-1] <= 0:
+        raise ValueError(f"{n_samples} samples make no frame of the conv stack")
+    last, scale = 1, 1  # scale: the product of the strides after layer i
+    for i in range(len(frames) - 1, -1, -1):
+        last = max(last, -(-frames[i] // scale))
+        scale *= cfg.conv_stride[i]
+    out, p = [], last
+    for i in range(len(frames) - 1, -1, -1):
+        out.append(p)
+        p *= cfg.conv_stride[i]
+    return out[::-1]
+
+
 def group_norm(x, scale, bias, groups, lengths=None, eps=1e-5):
     """x: [B, C, T]; torch GroupNorm with statistics over each row's first
     `lengths[b]` frames only (counterpart of JAX `_group_norm(frame_mask=)`)."""
@@ -169,9 +202,11 @@ def group_norm(x, scale, bias, groups, lengths=None, eps=1e-5):
 
 
 class _ConvLayer(nn.Module):
-    def __init__(self, c_in, c_out, kernel, norm, bias):
+    def __init__(self, c_in, c_out, kernel, norm, bias, fused):
         super().__init__()
         self.conv = nn.Conv1d(c_in, c_out, kernel, bias=bias)
+        if fused:  # the card's implicit GEMM: conv layers 1..
+            self.fused = CV.FusedConv(self.conv)
         if norm is not None:
             self.layer_norm = norm
 
@@ -186,7 +221,7 @@ class _FeatureExtractor(nn.Module):
                 norm = nn.LayerNorm(c)
             else:
                 norm = nn.GroupNorm(cfg.num_groupnorm_groups, c) if i == 0 else None
-            layers.append(_ConvLayer(c_in, c, k, norm, cfg.conv_bias))
+            layers.append(_ConvLayer(c_in, c, k, norm, cfg.conv_bias, fused=i > 0))
             c_in = c
         self.conv_layers = nn.ModuleList(layers)
 
@@ -354,26 +389,66 @@ class Wav2Vec2(nn.Module):
 
     def _features(self, audio, lengths):
         """audio [B, S] (normalised) -> the projected features [B, T, hidden]:
-        the conv stack, its norms and GELUs, and the feature projection."""
+        the conv stack, its norms and GELUs, and the feature projection. The
+        card takes the channels-last stack, the CPU the [B, C, T] one."""
+        if audio.device.type == "cpu":
+            return self._features_plain(audio, lengths)
+        return self._features_channels_last(audio, lengths)
+
+    def _features_channels_last(self, audio, lengths):
+        """The conv stack on [B, P_i, C] activations (`padded_frames`): no
+        transposes after conv layer 0's output, each conv of layers 1.. one
+        launch of the implicit GEMM. Padded frames hold finite values that no
+        valid frame reads; the last layer's are dropped before the
+        projection."""
+        cfg = self.cfg
+        layers = self.feature_extractor.conv_layers
+        frames = padded_frames(cfg, audio.shape[1])
+        first, s0 = layers[0], cfg.conv_stride[0]
+        layer_norm = cfg.feat_extract_norm == "layer"
+        if layer_norm:
+            ln = first.layer_norm
+            x = CV.layer_norm_gelu(
+                CV.first_conv(audio, first.conv.weight, first.conv.bias, s0, frames[0]),
+                ln.weight, ln.bias, ln.eps)
+        else:
+            x = F.conv1d(audio[:, None, :], first.conv.weight, first.conv.bias, stride=s0)
+            x = CV.channels_last(self._group_norm_gelu(x, lengths), frames[0])
+        for i in range(1, len(layers)):
+            layer = layers[i]
+            x = layer.fused(x, cfg.conv_stride[i], gelu=not layer_norm)
+            if layer_norm:
+                ln = layer.layer_norm
+                x = CV.layer_norm_gelu(x, ln.weight, ln.bias, ln.eps)
+        x = x[:, :feature_extractor_output_length(cfg, audio.shape[1])]
+        return self.feature_projection.fused(self.feature_projection.layer_norm(x))
+
+    def _group_norm_gelu(self, x, lengths):
+        """Conv layer 0's group norm and GELU under "group" norms on x [B, C,
+        T], with statistics over each row's valid frames: K1 when the groups
+        are the channels."""
+        cfg = self.cfg
+        cur_len = None
+        if lengths is not None:
+            cur_len = ((lengths - cfg.conv_kernel[0]) // cfg.conv_stride[0] + 1).clamp_min(0)
+        gn = self.feature_extractor.conv_layers[0].layer_norm
+        if cfg.num_groupnorm_groups == x.shape[1]:
+            return instance_norm_gelu(x, gn.weight, gn.bias, cur_len)
+        return F.gelu(group_norm(x, gn.weight, gn.bias, cfg.num_groupnorm_groups, cur_len))
+
+    def _features_plain(self, audio, lengths):
         cfg = self.cfg
         x = audio[:, None, :]  # [B, 1, S]
-        cur_len = lengths
         for i, layer in enumerate(self.feature_extractor.conv_layers):
             x = F.conv1d(x, layer.conv.weight, layer.conv.bias, stride=cfg.conv_stride[i])
-            if cur_len is not None:
-                cur_len = ((cur_len - cfg.conv_kernel[i]) // cfg.conv_stride[i] + 1).clamp_min(0)
             if cfg.feat_extract_norm == "layer":  # over the channels of each frame
                 ln = layer.layer_norm
                 x = F.gelu(F.layer_norm(x.transpose(1, 2), ln.normalized_shape, ln.weight,
                                         ln.bias, ln.eps)).transpose(1, 2)
-                continue
-            if i == 0:
-                gn = layer.layer_norm
-                if cfg.num_groupnorm_groups == x.shape[1]:
-                    x = instance_norm_gelu(x, gn.weight, gn.bias, cur_len)
-                    continue
-                x = group_norm(x, gn.weight, gn.bias, cfg.num_groupnorm_groups, cur_len)
-            x = F.gelu(x)
+            elif i == 0:
+                x = self._group_norm_gelu(x, lengths)
+            else:
+                x = F.gelu(x)
         x = x.transpose(1, 2)  # [B, T, C]
         return self.feature_projection.fused(self.feature_projection.layer_norm(x))
 

@@ -135,6 +135,12 @@ def _version(p: torch.Tensor) -> int:
     return -1 if p.is_inference() else p._version
 
 
+def param_key(params) -> tuple:
+    """What a cache of operands made from `params` is keyed on: each one's
+    storage, version, shape and device."""
+    return tuple((p.data_ptr(), _version(p), tuple(p.shape), p.device) for p in params)
+
+
 class FusedLinear:
     """The kernel's operands of `nn.Linear`s that read the same input: their
     weights concatenated along the outputs and split once (`split_tf32`),
@@ -155,7 +161,7 @@ class FusedLinear:
 
     def operands(self):
         params = [p for lin in self.linears for p in (lin.weight, lin.bias) if p is not None]
-        key = tuple((p.data_ptr(), _version(p), tuple(p.shape), p.device) for p in params)
+        key = param_key(params)
         if key != self._key:
             self._operands = None  # the old split goes before the new one is made
             with torch.no_grad():
